@@ -1,0 +1,56 @@
+"""Covariance functions of the slice (port of :mod:`volt_tpu.kernels.kernels`).
+
+Kernels with learnable state are ``nn.Module``s whose parameters carry the
+JAX leaf names with a leading batch (asset) shape; :meth:`init` creates
+them.  Time inputs are 1-D grids ``(n,)``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from ..ops.constraints import Interval
+from ..ops.volint import vol_integral
+
+__all__ = ["BMKernel", "VolatilityKernel"]
+
+
+class BMKernel(nn.Module):
+    """Brownian-motion covariance ``K(s, t) = vol * min(s, t)``, ``vol`` in
+    ``Interval(0, 1)`` (sigmoid), default 0.2; parameter ``raw_vol``
+    ``(*batch, 1)``.  The slice uses only ``vol`` (its consumers build
+    no covariance matrix)."""
+
+    def __init__(self, vol: float = 0.2,
+                 vol_constraint: Optional[Interval] = None):
+        super().__init__()
+        self.constraint = vol_constraint or Interval(0.0, 1.0)
+        self._init_vol = vol
+
+    def init(self, batch_shape=(), dtype=torch.float32, device=None):
+        raw = self.constraint.inverse(torch.tensor(self._init_vol, dtype=dtype))
+        self.raw_vol = nn.Parameter(torch.full((*batch_shape, 1), raw.item(),
+                                               dtype=dtype, device=device))
+        return self
+
+    def vol(self):
+        return self.constraint.forward(self.raw_vol)
+
+
+class VolatilityKernel:
+    """The Volt covariance ``K[i, j] = I[min(i, j)]`` with ``I`` the running
+    integral of ``vol**2``.  No trainable parameters; the slice uses only
+    the integral (the dense build is ROADMAP slice B, item 13)."""
+
+    def __init__(self, integral_rule: str = "reference"):
+        if integral_rule not in ("reference", "trapezoid"):
+            raise ValueError("integral_rule must be 'reference' or "
+                             "'trapezoid'")
+        self.integral_rule = integral_rule
+
+    def integral(self, x, vol_path):
+        """The running integral for closed-form consumers."""
+        return vol_integral(x, vol_path, self.integral_rule)

@@ -1,0 +1,134 @@
+"""Build and bind the port's hand-written CUDA kernels.
+
+The sources in ``csrc/`` have a plain C interface.  On first use they are
+compiled with ``nvcc`` for Hopper (``sm_90a``) into one shared library
+under ``_build/`` (keyed by a hash of the sources and flags, so an edited
+source rebuilds) and loaded with ``ctypes``.  Nothing here runs at import:
+the CPU never needs the library.
+
+:func:`launch` is the one place a kernel is launched: it passes tensor
+pointers and PyTorch's current stream, raises on the ``cudaError_t`` the C
+entry returns, and counts the launch in :data:`launches`.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+__all__ = ["library", "launch", "launches", "check_tensors", "build_log"]
+
+_HERE = Path(__file__).resolve().parent
+_CSRC = _HERE / "csrc"
+_BUILD = _HERE / "_build"
+_SOURCES = ("ewma_filter.cu", "kalman.cu")
+_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C entry points: argument types, the trailing stream included.
+_SIGNATURES = {
+    "volt_ewma_filter": (_P, _P, _P, _I, _I, _I, _P),
+    "volt_kalman_forward": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
+    "volt_kalman_backward": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                             _I, _I, _P),
+}
+
+# Launches per C entry point since the last ``launches.clear()``.
+launches: collections.Counter = collections.Counter()
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    for cand in ([Path(home) / "bin" / "nvcc"] if home else []) + [
+            Path("/usr/local/cuda/bin/nvcc")]:
+        if cand.exists():
+            return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA "
+                           "toolkit to build the port's kernels")
+    return found
+
+
+def _library_path() -> Path:
+    h = hashlib.sha256(" ".join(_FLAGS).encode())
+    for name in _SOURCES:
+        h.update(name.encode())
+        h.update((_CSRC / name).read_bytes())
+    return _BUILD / f"libvolt_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build_log() -> str:
+    """The compiler's output (``ptxas -v`` register and shared-memory
+    use per kernel) from the build of the current sources, if any."""
+    log = _library_path().with_suffix(".log")
+    return log.read_text() if log.exists() else ""
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library."""
+    so = _library_path()
+    if not so.exists():
+        _BUILD.mkdir(exist_ok=True)
+        tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *_FLAGS, "-o", str(tmp),
+               *(str(_CSRC / s) for s in _SOURCES)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{proc.stderr}")
+        so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+        os.replace(tmp, so)
+    lib = ctypes.CDLL(str(so))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.volt_cuda_error_string.argtypes = (ctypes.c_int,)
+    lib.volt_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check_tensors(name: str, *tensors):
+    """Raise unless every tensor is a contiguous float32 CUDA tensor on
+    one device — the only layout the kernels take."""
+    device = tensors[0].device
+    for t in tensors:
+        if t.device.type != "cuda" or t.device != device:
+            raise ValueError(f"{name}: expected CUDA tensors on one device, "
+                             f"got {t.device} (and {device})")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: expected float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: expected contiguous tensors")
+        if t.numel() >= 2**31:
+            raise ValueError(f"{name}: {t.numel()} elements exceed the "
+                             f"kernels' 32-bit sizes")
+
+
+def launch(symbol: str, *args, device: torch.device):
+    """Call the C entry ``symbol`` on ``device``'s current stream.
+
+    Tensors are passed as pointers, ``None`` as a null pointer, ints as
+    ``int``.  Raises ``RuntimeError`` if the launch was refused.
+    """
+    lib = library()
+    cargs = [a.data_ptr() if torch.is_tensor(a) else a for a in args]
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, symbol)(*cargs, stream)
+    if rc != 0:
+        msg = lib.volt_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{symbol}: CUDA error {rc} ({msg})")
+    launches[symbol] += 1

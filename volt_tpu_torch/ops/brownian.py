@@ -1,0 +1,88 @@
+"""Closed-form algebra for Brownian (min) kernels (port of the slice's
+part of :mod:`volt_tpu.ops.brownian`).
+
+The vol-GP stage's spectral MLL needs the closed-form eigensystem of the
+integer min-matrix ``M[i, j] = min(i, j)`` (``i, j = 1..n``):
+
+    ``mu_k = 1 / (4 sin^2((2k+1) pi / (2(2n+1))))``
+    ``u_k[j] = 2/sqrt(2n+1) * sin((2k+1) j pi / (2n+1))``
+
+and the projection ``U^T y``, here one matrix product against the
+materialised basis.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+__all__ = [
+    "future_grid_ok",
+    "nan_poison",
+    "min_kernel_eigenvalues",
+    "min_kernel_spectrum",
+    "min_kernel_project",
+    "PROJECT_MAX_N",
+]
+
+# Largest n the projection takes: the materialised basis is n^2 floats
+# (67 MB at 4096).  The JAX package switches to a Bluestein FFT above
+# this; the port has no FFT branch yet (ROADMAP "Open items", slice A).
+PROJECT_MAX_N = 4096
+
+
+def future_grid_ok(test_x, train_x):
+    """``test_x`` strictly increasing and strictly after the last train
+    point — the contract of the filtered-state forecast closed forms."""
+    if test_x.shape[-1] > 1:
+        inc_ok = torch.all(torch.diff(test_x, dim=-1) > 0, dim=-1)
+    else:
+        inc_ok = torch.ones(test_x.shape[:-1], dtype=torch.bool,
+                            device=test_x.device)
+    return inc_ok & (test_x[..., 0] > train_x[..., -1])
+
+
+def nan_poison(x, ok):
+    """``x`` where ``ok`` else NaN, as arithmetic: ``x * (ok / ok)``.
+    ``ok`` broadcasts against ``x`` from the left (pre-expand it)."""
+    okf = ok.to(x.dtype)
+    return x * (okf / okf)
+
+
+def min_kernel_eigenvalues(n: int, dtype=torch.float32, device=None):
+    """Eigenvalues ``mu_k`` of the integer min-matrix — O(n), any n."""
+    k = torch.arange(n, dtype=dtype, device=device)
+    return 1.0 / (4.0 * torch.sin((2 * k + 1)
+                                  * (math.pi / (2 * (2 * n + 1)))) ** 2)
+
+
+def min_kernel_spectrum(n: int, dtype=torch.float32, device=None):
+    """``(mu (n,), u (n, n) orthonormal columns, w (n,) = U^T 1)``.
+
+    The sine arguments are reduced with exact integer arithmetic (int64)
+    so float32 ``sin`` stays accurate where the raw angles reach
+    ``~2 n pi``.
+    """
+    mu = min_kernel_eigenvalues(n, dtype, device)
+    k = torch.arange(n, device=device)
+    j = torch.arange(1, n + 1, device=device)
+    prod = ((2 * k[None, :] + 1) * j[:, None]) % (2 * (2 * n + 1))
+    u = torch.sin(prod.to(dtype) * (math.pi / (2 * n + 1))) * (
+        2.0 / math.sqrt(2 * n + 1))
+    return mu, u, torch.sum(u, dim=0)
+
+
+def min_kernel_project(y, axis: int = -1):
+    """``U^T y`` along ``axis`` for the closed-form eigenbasis: one matrix
+    product against the basis (``torch.matmul`` outside any kernel, as the
+    JAX package leaves this product to XLA)."""
+    y = torch.movedim(y, axis, -1)
+    n = y.shape[-1]
+    if n > PROJECT_MAX_N:
+        raise NotImplementedError(
+            f"min_kernel_project: n={n} > {PROJECT_MAX_N} needs the FFT "
+            "projection, not yet ported (ROADMAP 'Open items': direct "
+            "torch.fft transform for n > 4096)")
+    _, u, _ = min_kernel_spectrum(n, y.dtype, y.device)
+    return torch.movedim(torch.matmul(y, u), -1, axis)

@@ -1,0 +1,325 @@
+"""The whole Volt pipeline, batched over assets (port of
+:mod:`volt_tpu.parallel.pipeline` without a mesh).
+
+``fit_forecast_batch`` runs, for ``B`` assets at once on one device:
+
+1. GPCV: Adam on the tridiagonal-precision ELBO -> the vol path;
+2. the vol GP: Adam on the spectral MLL of ``log(vol)``;
+3. the Volt data model: Adam on the Kalman MLL (kernel S1 on CUDA), with
+   the EWMA train mean (kernel K1 on CUDA) computed once outside the loss;
+4. the Markov Monte-Carlo rollout, then the quantile fan or the paths.
+
+JAX ``vmap``s one asset's program over the batch; here every tensor has a
+leading asset axis and each Adam loop minimises the summed per-asset
+losses, which updates every asset exactly as its own Adam would.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..convert import load_jax_params, params_tree
+from ..models.bmgp import BMGP
+from ..models.gpcv import GPCVModel
+from ..models.volt import VoltGP, make_mean
+from ..ops.tridiag import brownian_noise_mll_kalman
+from ..rollouts import _rollout_volt_scan, sample_vol_paths
+from ..train import adam_loop, scaled_returns
+
+__all__ = ["PipelineConfig", "fit_forecast", "fit_forecast_batch",
+           "warm_start"]
+
+
+@dataclasses.dataclass(frozen=True)
+class PipelineConfig:
+    """Static configuration of the pipeline (the JAX package's fields and
+    defaults).  The port runs the BM / tridiag / Adam / spectral slice
+    with the ``ewma`` and ``constant`` means; other values raise
+    ``NotImplementedError`` naming the ROADMAP item that ports them."""
+
+    gpcv_iters: int = 300
+    vol_iters: int = 300
+    data_iters: int = 300
+    kernel: str = "bm"
+    mean_func: str = "ewma"
+    k: int = 300
+    theta: Optional[float] = None
+    nsample: int = 1000
+    gpcv_lr: float = 0.01
+    vol_lr: float = 0.01
+    data_lr: float = 0.1
+    num_locs: int = 75
+    gpcv_q: str = "tridiag"
+    gpcv_opt: str = "adam"
+    vol_mll: str = "spectral"
+    output: str = "samples"
+    quantile_levels: tuple = (0.025, 0.05, 0.25, 0.5, 0.75, 0.95, 0.975)
+    integral_rule: str = "reference"
+
+
+# (field, the port's value, the other legal values, ROADMAP item)
+_SLICE = (
+    ("kernel", "bm", ("fbm",), "slice C, item 16"),
+    ("gpcv_q", "tridiag", ("full",), "slice B, item 11"),
+    ("gpcv_opt", "adam", ("ngvi",), "slice B, item 11"),
+    ("vol_mll", "spectral", ("kalman",), "slice B, item 11"),
+)
+
+
+def _resolve_config(config: PipelineConfig) -> PipelineConfig:
+    """Reject what the port cannot run: ``ValueError`` for values the JAX
+    package does not know either, ``NotImplementedError`` for the parts
+    not ported yet."""
+    for field, ours, others, item in _SLICE:
+        value = getattr(config, field)
+        if value in others:
+            raise NotImplementedError(
+                f"PipelineConfig({field}={value!r}) is not ported yet "
+                f"(ROADMAP {item}); the port runs {field}={ours!r}")
+        if value != ours:
+            raise ValueError(f"PipelineConfig.{field} must be one of "
+                             f"{(ours, *others)}, got {value!r}")
+    make_mean(config.mean_func, k=config.k)  # raises for other means
+    if config.output not in ("samples", "quantiles"):
+        raise ValueError(f"PipelineConfig.output must be 'samples' or "
+                         f"'quantiles', got {config.output!r}")
+    return config
+
+
+def _check_min_length(train_x):
+    """The running-std init pins its first 10 entries to the 11th."""
+    n = train_x.shape[-1]
+    if n < 11:
+        raise ValueError(f"the pipeline needs at least 11 train points (the "
+                         f"GPCV running-std init uses the 11th entry), got "
+                         f"n={n}")
+
+
+def _is_equispaced(x) -> bool:
+    """Uniform grid within ``max(1e-3 relative, 4 eps_f32 max|x|)``."""
+    xv = np.asarray(x.detach().cpu() if torch.is_tensor(x) else x)
+    if xv.ndim != 1 or xv.shape[0] < 3:
+        return False
+    d = np.diff(np.asarray(xv, np.float64))
+    med = float(np.median(d))
+    tol = max(1e-3 * abs(med),
+              4.0 * float(np.finfo(np.float32).eps) * float(np.max(np.abs(xv))))
+    return bool(np.all(np.abs(d - med) <= tol))
+
+
+def _check_spectral_grid(train_x, config: PipelineConfig):
+    """The spectral vol MLL assumes an equispaced ``train_x``."""
+    if config.vol_mll == "spectral" and not _is_equispaced(train_x):
+        raise ValueError("vol_mll='spectral' requires an equispaced train_x")
+
+
+class _StageClock:
+    """Wall seconds per stage; on a CUDA device each mark first waits for
+    the device, so a stage's time includes the work it queued."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.seconds = {}
+        self._last = self._now()
+
+    def _now(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return time.perf_counter()
+
+    def mark(self, stage: str):
+        now = self._now()
+        self.seconds[stage] = now - self._last
+        self._last = now
+
+
+def _volt_data_fit(volt: VoltGP, train_x, log_y, vol, iters, lr):
+    """Stage-3 core: Adam on the Kalman MLL of the Volt data model.  The
+    EWMA mean is parameter-free, so it is computed once outside the loss."""
+    v_integral = volt.kernel.integral(train_x, vol)
+    if volt.mean.is_history_dependent:
+        resid = log_y - volt.train_mean(train_x, log_y)
+
+        def data_loss():
+            noise = volt.likelihood.noise()[..., 0]
+            return -brownian_noise_mll_kalman(v_integral, noise, resid)
+    else:
+        def data_loss():
+            noise = volt.likelihood.noise()[..., 0]
+            mv = volt.train_mean(train_x, log_y)
+            return -brownian_noise_mll_kalman(v_integral, noise, log_y - mv)
+
+    return adam_loop(volt, data_loss, iters, lr)
+
+
+def fit_forecast_batch(generator, train_x, train_ys, test_x,
+                       config: PipelineConfig, init_params=None, noise=None):
+    """Fit + forecast a batch of assets.
+
+    ``train_x (n,)`` is the return grid, ``train_ys (B, n+1)`` the prices,
+    ``test_x (H,)`` the strictly-future forecast grid, all on one device.
+    ``generator`` (a ``torch.Generator`` on that device) draws the Monte
+    Carlo normals unless ``noise`` gives them:
+    ``{"vol_r0": (B, S), "vol_z": (B, S, H), "zs": (B, S, H)}``.
+
+    Returns ``(out, aux)``: ``out`` is the paths ``(B, S, H)`` or, with
+    ``output="quantiles"``, the fan ``(B, L, H)`` (``aux`` then also holds
+    ``forecast_mean``/``forecast_std`` ``(B, H)``).  ``aux`` holds the
+    per-asset ``ok`` flags, the vol path, the final and per-step losses
+    ``(B, iters)``, the fitted parameters as nested dicts (the JAX
+    pytree layout, leading asset axis) and ``stage_seconds``.
+
+    ``init_params``: optional warm start ``{"gpcv", "vol", "volt"}``, e.g.
+    :func:`warm_start` of a previous ``aux``.
+    """
+    config = _resolve_config(config)
+    _check_min_length(train_x)
+    _check_spectral_grid(train_x, config)
+    device, dtype = train_ys.device, train_ys.dtype
+    batch = train_ys.shape[:-1]
+    clock = _StageClock(device)
+
+    def start(module, key, init):
+        if init_params is None:
+            return init()
+        return load_jax_params(module, init_params[key], device)
+
+    # ---- stage 1: GPCV ----------------------------------------------------
+    yy = scaled_returns(train_x, train_ys)
+    gpcv = GPCVModel(q=config.gpcv_q)
+    start(gpcv, "gpcv", lambda: gpcv.init(train_x, yy))
+    gpcv_losses = adam_loop(gpcv, lambda: -gpcv.elbo(train_x, yy),
+                            config.gpcv_iters, config.gpcv_lr)
+    with torch.no_grad():
+        vol = gpcv.predicted_scale()
+    clock.mark("gpcv")
+
+    # ---- stage 2: vol GP (closed-form spectral MLL) -----------------------
+    log_vol = torch.log(vol)
+    bm = BMGP(kernel=config.kernel)
+    start(bm, "vol", lambda: bm.init(batch, dtype, device))
+    vol_cache = bm.spectral_cache(train_x, log_vol)
+    vol_losses = adam_loop(bm, lambda: -bm.mll_spectral(vol_cache),
+                           config.vol_iters, config.vol_lr)
+    vol_state = bm.fit_state(train_x, log_vol)
+    clock.mark("vol")
+
+    # ---- stage 3: Volt data model (Kalman MLL) ----------------------------
+    log_y = torch.log(train_ys[..., 1:])
+    volt = VoltGP(mean=make_mean(config.mean_func, k=config.k),
+                  integral_rule=config.integral_rule)
+    start(volt, "volt", lambda: volt.init(batch, dtype, device))
+    data_losses = _volt_data_fit(volt, train_x, log_y, vol,
+                                 config.data_iters, config.data_lr)
+    model = volt.fit_state(train_x, log_y, vol, vol_state)
+    clock.mark("data")
+
+    # ---- stage 4: Monte-Carlo rollout -------------------------------------
+    with torch.no_grad():
+        use_theta = config.theta is not None
+        latent_mean = (torch.mean(torch.log(train_ys), dim=-1) if use_theta
+                       else torch.zeros((), dtype=dtype, device=device))
+        h, s = test_x.shape[-1], config.nsample
+        vol_noise = None if noise is None else (noise["vol_r0"],
+                                                noise["vol_z"])
+        pred_vol = sample_vol_paths(vol_state, test_x, s, generator,
+                                    vol_noise)
+        zs = (torch.randn(*batch, s, h, dtype=dtype, device=device,
+                          generator=generator) if noise is None
+              else noise["zs"])
+        samples = _rollout_volt_scan(model, latent_mean, test_x, pred_vol,
+                                     zs, use_theta,
+                                     config.theta if use_theta else 0.0)
+        # per-asset failure flag: a diverged asset stays in its own lanes
+        ok = (torch.all(torch.isfinite(samples).flatten(-2), dim=-1)
+              & torch.isfinite(gpcv_losses[-1])
+              & torch.isfinite(vol_losses[-1])
+              & torch.isfinite(data_losses[-1]))
+        if config.output == "quantiles":
+            levels = torch.tensor(config.quantile_levels, dtype=dtype,
+                                  device=device)
+            out = torch.quantile(samples, levels, dim=-2).movedim(0, -2)
+        else:
+            out = samples
+    clock.mark("rollout")
+
+    aux = {
+        "ok": ok,
+        "vol": vol,
+        "gpcv_loss": gpcv_losses[-1],
+        "vol_loss": vol_losses[-1],
+        "data_loss": data_losses[-1],
+        "gpcv_losses": gpcv_losses.movedim(0, -1),
+        "vol_losses": vol_losses.movedim(0, -1),
+        "data_losses": data_losses.movedim(0, -1),
+        "volt_params": params_tree(volt),
+        "vol_params": params_tree(bm),
+        "gpcv_params": params_tree(gpcv),
+        "stage_seconds": clock.seconds,
+    }
+    if config.output == "quantiles":
+        aux["forecast_mean"] = torch.mean(samples, dim=-2)
+        aux["forecast_std"] = torch.std(samples, dim=-2, correction=0)
+    return out, aux
+
+
+def fit_forecast(generator, train_x, train_y, test_x, config: PipelineConfig,
+                 init_params=None, noise=None):
+    """Fit + forecast one asset: :func:`fit_forecast_batch` on a batch of
+    one (``train_y (n+1,)``; ``noise`` and ``init_params`` without the
+    asset axis), with the asset axis removed from every output."""
+    def add_axis(tree):
+        if isinstance(tree, dict):
+            return {k: add_axis(v) for k, v in tree.items()}
+        return torch.as_tensor(tree)[None]
+
+    def drop_axis(tree):
+        if isinstance(tree, dict):
+            return {k: drop_axis(v) for k, v in tree.items()}
+        return tree[0] if torch.is_tensor(tree) else tree
+
+    out, aux = fit_forecast_batch(
+        generator, train_x, train_y[None], test_x, config,
+        None if init_params is None else add_axis(init_params),
+        None if noise is None else add_axis(noise))
+    return out[0], drop_axis(aux)
+
+
+def _shift_tail(a, shift: int):
+    """Roll the last axis left by ``shift``, replicating the final entry."""
+    pad = a[..., -1:].expand(*a.shape[:-1], shift)
+    return torch.cat([a[..., shift:], pad], dim=-1)
+
+
+def warm_start(aux, shift: int = 0, n: int | None = None):
+    """``init_params`` for :func:`fit_forecast_batch` from a previous fit's
+    ``aux``.
+
+    ``shift=0`` re-seeds a fit of the same window.  ``shift>0`` slides the
+    window forward ``shift`` ticks at the same length (``n``, the return
+    grid's length, must be given): per-datum GPCV leaves shift with the
+    window, the new tail starting from the last entry; the boundary entry
+    of ``q_log_d`` (the bidiagonal factor's last row) stays at the
+    boundary; scalar hyperparameters and the vol/data-model parameters
+    carry over unchanged.
+    """
+    gpcv = dict(aux["gpcv_params"])
+    if shift:
+        if n is None:
+            raise ValueError("warm_start(shift>0) needs n (the return-grid "
+                             "length train_x.shape[-1])")
+        for k, v in gpcv.items():
+            if not torch.is_tensor(v) or v.dim() == 0:
+                continue
+            if k == "q_log_d" and v.shape[-1] == n:
+                interior = _shift_tail(v[..., :-1], shift)
+                gpcv[k] = torch.cat([interior, v[..., -1:]], dim=-1)
+            elif v.shape[-1] in (n, n - 1):  # per-datum vectors
+                gpcv[k] = _shift_tail(v, shift)
+    return {"gpcv": gpcv, "vol": aux["vol_params"],
+            "volt": aux["volt_params"]}
