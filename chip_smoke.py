@@ -9,25 +9,50 @@ Phases, each printed with its time; any failure exits non-zero:
 
 1. device: the card's name and power limit (``nvidia-smi``), torch and CUDA
    versions; TF32 off for matmuls and cuDNN (the plain EWMA is a cuDNN
-   convolution, which TF32 would round to about three digits);
-2. build: compile the hand-written kernels from ``volt_tpu_torch/csrc``;
+   convolution, and the dense path's Cholesky solves and products must
+   stay float32);
+2. build: compile the hand-written kernels from ``volt_tpu_torch/csrc``
+   (one ``nvcc`` per source, all at once);
 3. kernels against their plain PyTorch versions on the card, float32, at
-   the main path's shapes: K1 (EWMA filter, max abs error <= 1e-5 max|y|)
-   and S1 (Kalman MLL forward and adjoint: value and final state rtol
-   1e-5; gradients rtol 1e-4, atol 1e-6 of the largest gradient, since
-   d/dv differences neighbouring d/d(delta)), timed with CUDA events
-   over back-to-back calls (the plain Kalman loop: one call per run);
+   the shapes their paths give them, timed with CUDA events over
+   back-to-back calls (the plain Kalman loop: one call per run):
+   K1 (EWMA filter, max abs error <= 1e-5 max|y|); S1 (Kalman MLL forward
+   and adjoint: value and final state rtol 1e-5; gradients rtol 1e-4,
+   atol 1e-6 of the largest gradient, since d/dv differences neighbouring
+   d/d(delta)); K2 (dense Volt covariance: exact, it copies values of the
+   integral; its gradient rtol 1e-5); K3 (GH-75 expected log-likelihood on
+   inputs in both clamp regions: forward rtol 1e-5 with atol 1e-6 for sums
+   that cancel to near zero; gradients as S1's, d/dvar plus the float32
+   error bound of its 75-term node sum, which cancels to a value
+   proportional to sd: ``ops.gh_ell.var_grad_resolution``);
 4. the main path at full width: ``fit_forecast_batch`` on 64 SABR series
    of 999 returns with the ``PipelineConfig`` defaults (300/300/300 Adam
    steps, EWMA k=300, 1000 paths x 100 steps, quantile fan), then once
    with ``output="samples"``.  Checks: finite outputs of the right shape,
    every ``ok``, a fan non-decreasing across levels, the recovered vol
-   within an order of magnitude of the true SABR vol, and every kernel
+   within an order of magnitude of the true SABR vol, and K1 and S1
    launched during the run (launch counts reset just before it);
-5. agreement on a small input: the card's run equals the CPU run (the
+5. the reference API on one SABR asset (1000 prices, H=100):
+   ``Volt(mean="ewma", k=300).Train()`` with its defaults (400 NGVI, 1000
+   vol, 400 data iterations) and ``Forecast(nsample=1000)``: shape and
+   finite values; the dense MLL (K2) against the Kalman MLL (S1) of the
+   same state, rel 1e-4; ``rollouts_dense`` (K2 every step) against the
+   Markov rollout on the same vol paths and normals, S=64, H=10, atol 5e-4
+   per path; K1, S1 and K2 launched;
+6. GPCV with the GH-75 term (K3) on 64 SABR series of 999 returns:
+   ``learn_gpcv(ell_method="quadrature")`` by 300 Adam steps and by 30
+   NGVI iterations, each predicted scale against the closed-form fit of
+   the same input (the two ELL forms differ below float32 resolution, but
+   Adam's normalised step m / sqrt(v) turns that into parameter moves of up
+   to lr where a gradient is near zero: rtol 2e-2 after 300 Adam steps;
+   NGVI's Newton-like steps keep rtol 2e-4); K3 forward and backward
+   launched;
+7. agreement on a small input: the card's run equals the CPU run (the
    plain versions, which the repository's tests hold against the JAX
    package) within the pipeline parity tolerances.
 
+Launch counts are reset before each of phases 4-6 and read after it; a
+kernel's ``launches`` is the count from the phase that drives its path.
 The second-to-last line is a JSON object with each kernel's launches,
 error and times; the last is ``{"ok": true, "device": {...}}``.  Without a
 CUDA device, or outside a checkout of the repository, it exits non-zero
@@ -181,6 +206,120 @@ def check_kalman(torch, vt):
     ]
 
 
+def check_volt_cov(torch):
+    """K2 against the plain build on the card: the main shape (64, 999),
+    the joint train + test grid (64, 1099), ragged edges and a 1-D vol."""
+    from volt_tpu_torch.ops.volint import min_index_covariance, vol_integral
+    from volt_tpu_torch.ops.volt_cov import volt_covariance, \
+        volt_covariance_cuda
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    worst = 0.0
+    for shape in [(64, 999), (64, 1099), (1, 5), (3, 257), (999,)]:
+        n = shape[-1]
+        x = torch.arange(1, n + 1, dtype=torch.float32, device="cuda") / 252.0
+        vol = 0.1 + 0.2 * torch.rand(*shape, device="cuda", generator=g)
+        got = volt_covariance(x, vol)
+        want = min_index_covariance(vol_integral(x, vol))
+        err = (got - want).abs().max().item()
+        print(f"   K2 {shape}: max abs err {err:.3e} (tol 0)")
+        if got.shape != want.shape or err != 0.0:
+            fail(f"K2 disagrees with its plain version at {shape}")
+        worst = max(worst, err)
+    x = torch.arange(1, 131, dtype=torch.float32, device="cuda") / 252.0
+    vol = 0.1 + 0.2 * torch.rand(2, 130, device="cuda", generator=g)
+    a, b = vol.clone().requires_grad_(), vol.clone().requires_grad_()
+    torch.cos(volt_covariance(x, a)).sum().backward()
+    torch.cos(min_index_covariance(vol_integral(x, b))).sum().backward()
+    gerr = (a.grad - b.grad).abs().max().item()
+    print(f"   K2 gradient (2, 130): max abs err {gerr:.3e}")
+    if not torch.allclose(a.grad, b.grad, rtol=1e-5, atol=1e-6):
+        fail("K2's gradient disagrees with plain autograd")
+
+    x = torch.arange(1, 1000, dtype=torch.float32, device="cuda") / 252.0
+    integral = vol_integral(x, 0.1 + 0.2 * torch.rand(
+        64, 999, device="cuda", generator=g)).contiguous()
+    ms = cuda_ms(torch, lambda: volt_covariance_cuda(integral))
+    plain_ms = cuda_ms(torch, lambda: min_index_covariance(integral))
+    gbs = 64 * 999 * 999 * 4 / (ms * 1e-3) / 1e9
+    print(f"   K2 (64, 999): kernel {ms:.4f} ms ({gbs:.0f} GB/s of stores), "
+          f"plain {plain_ms:.4f} ms")
+    return {"name": "volt_covariance", "route": "cuda",
+            "source": "volt_tpu_torch/csrc/volt_cov.cu",
+            "replaces": "volt_tpu/ops/pallas/volt_cov.py:47",
+            "symbol": "volt_covariance", "max_abs_err": worst, "ms": ms,
+            "plain_ms": plain_ms}
+
+
+def check_gh_ell(torch):
+    """K3 forward and backward against the plain node sum and its autograd,
+    on inputs that reach both clamp regions (mean from -10 to 85, variance
+    from 1e-8 to 4)."""
+    from volt_tpu_torch.ops import gh_ell as tgh
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+
+    def inputs(shape):
+        y = 0.05 * torch.randn(*shape, device="cuda", generator=g)
+        mu = -10.0 + 95.0 * torch.rand(*shape, device="cuda", generator=g)
+        s2 = 10.0 ** (-8.0 + 8.6 * torch.rand(*shape, device="cuda",
+                                              generator=g))
+        return y, mu, s2
+
+    fwd_err = bwd_err = 0.0
+    for shape in [(64, 999), (3, 37)]:
+        ins = inputs(shape)
+        a = [t.clone().requires_grad_() for t in ins]
+        b = [t.clone().requires_grad_() for t in ins]
+        got = tgh.gh_expected_log_prob(*a)
+        want = tgh._gh_ell_plain(*b, 75)
+        err = (got - want).abs().max().item()
+        print(f"   K3 forward {shape}: max abs err {err:.3e}")
+        if not torch.allclose(got, want, rtol=1e-5, atol=1e-6):
+            fail(f"K3 forward disagrees with its plain version at {shape}")
+        fwd_err = max(fwd_err, err)
+        cot = torch.randn(*shape, device="cuda", generator=g)
+        (got * cot).sum().backward()
+        (want * cot).sum().backward()
+        # d/dvar also gets the float32 resolution of its node sum, which
+        # cancels to a value proportional to sd (var down to 1e-8)
+        extra = (0.0, 0.0, tgh.var_grad_resolution(*ins, cot))
+        for name, p, q, e in zip(("y", "mean", "var"), a, b, extra):
+            err = (p.grad - q.grad).abs()
+            atol = 1e-6 * q.grad.abs().max().item()
+            used = (err / (1e-4 * q.grad.abs() + atol + e)).max().item()
+            print(f"   K3 d/d{name} {shape}: max abs err {err.max().item():.3e} "
+                  f"(atol {atol:.1e}), {used:.2f} of the tolerance")
+            if not used <= 1.0:
+                fail(f"K3 gradient w.r.t. {name} disagrees at {shape}")
+            bwd_err = max(bwd_err, err.max().item())
+
+    y, mu, s2 = (t.contiguous() for t in inputs((64, 999)))
+    cot = torch.randn(64, 999, device="cuda", generator=g)
+    fwd_ms = cuda_ms(torch, lambda: tgh.gh_ell_forward_cuda(y, mu, s2))
+    bwd_ms = cuda_ms(torch, lambda: tgh.gh_ell_backward_cuda(y, mu, s2, cot))
+    with torch.no_grad():
+        plain_fwd_ms = cuda_ms(torch, lambda: tgh._gh_ell_plain(y, mu, s2, 75))
+    ins = [t.clone().requires_grad_() for t in (y, mu, s2)]
+    out = tgh._gh_ell_plain(*ins, 75)
+    plain_bwd_ms = cuda_ms(torch, lambda: torch.autograd.grad(
+        out, ins, cot, retain_graph=True))
+    print(f"   K3 (64, 999): forward kernel {fwd_ms:.4f} ms, plain "
+          f"{plain_fwd_ms:.4f} ms; backward kernel {bwd_ms:.4f} ms, plain "
+          f"{plain_bwd_ms:.4f} ms")
+    common = {"route": "cuda", "source": "volt_tpu_torch/csrc/gh_ell.cu"}
+    return [
+        {"name": "gh_ell_forward", **common,
+         "replaces": "volt_tpu/ops/pallas/gh_ell.py:122",
+         "symbol": "volt_gh_ell_forward", "max_abs_err": fwd_err,
+         "ms": fwd_ms, "plain_ms": plain_fwd_ms},
+        {"name": "gh_ell_backward", **common,
+         "replaces": "volt_tpu/ops/pallas/gh_ell.py:143",
+         "symbol": "volt_gh_ell_backward", "max_abs_err": bwd_err,
+         "ms": bwd_ms, "plain_ms": plain_bwd_ms},
+    ]
+
+
 def grids(torch, n, h, device):
     dt = 1.0 / 252
     x = torch.arange(n, dtype=torch.float32, device=device) * dt
@@ -235,6 +374,116 @@ def run_main_path(torch, vt, native):
             not torch.isfinite(paths).all() or not bool(aux_s["ok"].all()):
         fail("samples call: bad shape, non-finite paths or a failed asset")
     return launches, total, stages
+
+
+def run_reference_api(torch, vt, native, dev="cuda", n=999, h=100,
+                      nsample=1000, train=None, dense_s=64, dense_h=10):
+    """The single-asset reference API at full width: ``Volt.Train`` /
+    ``Forecast``, the dense MLL against the Kalman MLL, and the dense
+    rollout against the Markov one on the same draws.  ``train`` overrides
+    ``Train``'s iteration counts (a small rehearsal on the CPU)."""
+    from volt_tpu_torch.rollouts import _rollout_volt_scan, rollouts_dense
+
+    f, _ = vt.data.sabr_paths(steps=n + 1, seed=1)
+    dt = 1.0 / 252
+    x = torch.arange(n + 1, dtype=torch.float32, device=dev) * dt
+    prices = torch.tensor(f, device=dev)
+    test_x = x[-1] + dt * torch.arange(1, h + 1, dtype=torch.float32,
+                                       device=dev)
+    g = torch.Generator(device=dev).manual_seed(4)
+
+    native.launches.clear()
+    t0 = time.perf_counter()
+    volt = vt.Volt(x, torch.log(prices), mean="ewma", k=300)
+    state = volt.Train(**(train or {}))
+    _sync(torch, dev)
+    t1 = time.perf_counter()
+    paths = volt.Forecast(test_x, nsample=nsample, generator=g)
+    _sync(torch, dev)
+    t2 = time.perf_counter()
+    print(f"   Train {t1 - t0:.3f} s, Forecast({nsample}) {t2 - t1:.3f} s")
+    if tuple(paths.shape) != (nsample, h) or not torch.isfinite(paths).all():
+        fail(f"Forecast: shape {tuple(paths.shape)} or non-finite paths")
+
+    with torch.no_grad():
+        dense, kalman = state.mll().item(), state.mll_kalman().item()
+        # the same dense MLL in float64 on the host, for the record
+        vol64 = torch.exp(state.log_vol_path).double().cpu()
+        y64 = state.train_y.double().cpu()
+        x64 = state.train_x.double().cpu()
+        mod = state.module
+        noise64 = mod.likelihood.noise().double().cpu()
+        from volt_tpu_torch.gp.exact import exact_mll
+        from volt_tpu_torch.ops.volint import min_index_covariance, \
+            vol_integral
+        dense64 = exact_mll(y64, mod.mean.train_values(y64),
+                            min_index_covariance(vol_integral(x64, vol64)),
+                            noise64).item()
+    t3 = time.perf_counter()
+    rel = abs(dense - kalman) / abs(kalman)
+    print(f"   MLL/n: dense {dense:.7f} (K2), Kalman {kalman:.7f} (S1), "
+          f"float64 host {dense64:.7f}; rel diff {rel:.2e} (tol 1e-4); "
+          f"{t3 - t2:.3f} s")
+    if not rel <= 1e-4:
+        fail("the dense MLL disagrees with the Kalman MLL of the same state")
+
+    with torch.no_grad():
+        tx = test_x[:dense_h]
+        pred_vol = vt.sample_vol_paths(state.vol_state, tx, dense_s, g)
+        zs = torch.randn(dense_s, dense_h, device=dev, generator=g)
+        fast = _rollout_volt_scan(state, torch.zeros((), device=dev), tx,
+                                  pred_vol, zs, False, 0.0)
+        slow = rollouts_dense(None, state, x[1:], prices, tx, dense_s,
+                              pred_vol=pred_vol, zs=zs)
+    _sync(torch, dev)
+    err = (fast - slow).abs().max().item()
+    print(f"   rollouts_dense vs Markov rollout (S={dense_s}, H={dense_h}): "
+          f"max abs diff {err:.3e} (tol 5e-4); "
+          f"{time.perf_counter() - t3:.3f} s")
+    if not err <= 5e-4 or not torch.isfinite(slow).all():
+        fail("rollouts_dense disagrees with the Markov rollout")
+    launches = dict(native.launches)
+    print(f"   kernel launches in the phase: {launches}")
+    return launches, {"train_s": t1 - t0, "forecast_s": t2 - t1,
+                      "mll_dense": dense, "mll_kalman": kalman,
+                      "mll_dense_f64": dense64, "rollout_dense_err": err}
+
+
+def run_gpcv_gh(torch, vt, native, dev="cuda", b=64, n=999, adam_iters=300,
+                ngvi_iters=30):
+    """GPCV trained on the GH-75 term (K3) by Adam and by NGVI, each held
+    against the closed-form fit of the same input."""
+    f, _ = vt.data.sabr_paths(steps=n + 1, seed=0, n_paths=b)
+    x = torch.arange(n, dtype=torch.float32, device=dev) / 252.0
+    ys = torch.tensor(f, device=dev)
+    out = {}
+    native.launches.clear()
+    for opt, iters, rtol in (("adam", adam_iters, 2e-2),
+                             ("ngvi", ngvi_iters, 2e-4)):
+        scales = {}
+        for ell in ("quadrature", "analytic"):
+            t0 = time.perf_counter()
+            scales[ell] = vt.learn_gpcv(x, ys, iters, opt=opt,
+                                        ell_method=ell)
+            _sync(torch, dev)
+            out[f"{opt}_{ell}_s"] = time.perf_counter() - t0
+        q, a = scales["quadrature"], scales["analytic"]
+        rel = ((q - a).abs() / a.abs()).max().item()
+        print(f"   {opt} x{iters}: GH-75 fit {out[f'{opt}_quadrature_s']:.3f} "
+              f"s, closed-form fit {out[f'{opt}_analytic_s']:.3f} s; "
+              f"predicted scale max rel diff {rel:.2e} (tol {rtol:.0e})")
+        if tuple(q.shape) != (b, n) or not torch.isfinite(q).all() or \
+                not rel <= rtol:
+            fail(f"GPCV {opt}: the GH-75 fit disagrees with the closed form")
+        out[f"{opt}_rel"] = rel
+    launches = dict(native.launches)
+    print(f"   kernel launches in the phase: {launches}")
+    return launches, out
+
+
+def _sync(torch, dev):
+    if dev == "cuda":
+        torch.cuda.synchronize()
 
 
 def check_small_agreement(torch, vt):
@@ -295,23 +544,48 @@ def main():
     done(t0)
 
     t0 = phase("kernels against their plain versions")
-    kernels = [check_ewma(torch), *check_kalman(torch, vt)]
+    kernels = [check_ewma(torch), *check_kalman(torch, vt),
+               check_volt_cov(torch), *check_gh_ell(torch)]
     done(t0)
 
     t0 = phase("main path: fit_forecast_batch, B=64, n=999, defaults")
     launches, total, stages = run_main_path(torch, vt, native)
-    for k in kernels:
-        k["launches"] = launches.get(k.pop("symbol"), 0)
-        if k["launches"] < 1:
-            fail(f"kernel {k['name']} was not launched by the main path")
+    paths = {"ewma_filter": ("fit_forecast_batch", launches),
+             "kalman_forward": ("fit_forecast_batch", launches),
+             "kalman_backward": ("fit_forecast_batch", launches)}
     done(t0)
+
+    t0 = phase("reference API: Volt.Train / Forecast, dense MLL and rollout")
+    api_launches, api = run_reference_api(torch, vt, native)
+    paths["volt_covariance"] = ("Volt reference API", api_launches)
+    for name in ("ewma_filter", "kalman_forward", "kalman_backward",
+                 "volt_covariance"):
+        sym = next(k["symbol"] for k in kernels if k["name"] == name)
+        if api_launches.get(sym, 0) < 1:
+            fail(f"kernel {name} was not launched by the reference API")
+    done(t0)
+
+    t0 = phase("GPCV with the GH-75 term: B=64, n=999, Adam and NGVI")
+    gh_launches, gh = run_gpcv_gh(torch, vt, native)
+    paths["gh_ell_forward"] = ("learn_gpcv(ell_method='quadrature')",
+                               gh_launches)
+    paths["gh_ell_backward"] = paths["gh_ell_forward"]
+    done(t0)
+
+    for k in kernels:
+        path, counts = paths[k["name"]]
+        k["path"] = path
+        k["launches"] = counts.get(k.pop("symbol"), 0)
+        if k["launches"] < 1:
+            fail(f"kernel {k['name']} was not launched by its path ({path})")
 
     t0 = phase("small input: card against CPU")
     check_small_agreement(torch, vt)
     done(t0)
 
     print(json.dumps({"card": card, "main_path_s": total,
-                      "stage_s": stages}))
+                      "stage_s": stages, "reference_api": api,
+                      "gpcv_gh": gh}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

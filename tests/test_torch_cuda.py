@@ -16,6 +16,9 @@ from volt_tpu_torch import native
 
 tew = importlib.import_module("volt_tpu_torch.ops.ewma")
 ttd = importlib.import_module("volt_tpu_torch.ops.tridiag")
+tvc = importlib.import_module("volt_tpu_torch.ops.volt_cov")
+tgh = importlib.import_module("volt_tpu_torch.ops.gh_ell")
+tvi = importlib.import_module("volt_tpu_torch.ops.volint")
 
 pytestmark = pytest.mark.cuda
 
@@ -80,6 +83,63 @@ def test_kalman_kernel_matches_plain(cuda, shared_v):
                                    atol=1e-6 * max(1.0, p.abs().max().item()))
 
 
+@pytest.mark.parametrize("shape", [(64, 999), (1, 5), (3, 257), (2, 4, 33),
+                                   (1003,)])
+def test_volt_cov_kernel_matches_plain(cuda, shape):
+    """K2 copies values of the integral: equal to the plain build exactly."""
+    n = shape[-1]
+    x = torch.arange(1, n + 1, device="cuda", dtype=torch.float32) / 252.0
+    vol = 0.1 + 0.2 * torch.rand(*shape, device="cuda", generator=cuda)
+    before = native.launches["volt_covariance"]
+    got = tvc.volt_covariance(x, vol)
+    assert native.launches["volt_covariance"] == before + 1
+    want = tvi.min_index_covariance(tvi.vol_integral(x, vol))
+    assert got.shape == (*shape, n)
+    torch.testing.assert_close(got, want, rtol=0.0, atol=0.0)
+
+
+def test_volt_cov_kernel_gradient_is_the_plain_transpose(cuda):
+    x = torch.arange(1, 131, device="cuda", dtype=torch.float32) / 252.0
+    vol = 0.1 + 0.2 * torch.rand(2, 130, device="cuda", generator=cuda)
+    a, b = vol.clone().requires_grad_(), vol.clone().requires_grad_()
+    torch.cos(tvc.volt_covariance(x, a)).sum().backward()
+    torch.cos(tvi.min_index_covariance(tvi.vol_integral(x, b))).sum() \
+        .backward()
+    torch.testing.assert_close(a.grad, b.grad, rtol=1e-5, atol=1e-6)
+
+
+def _gh_inputs(gen, shape):
+    """Data reaching both clamp regions: mean up to 85 and down to -10,
+    variances from 1e-8 to 4."""
+    y = 0.05 * torch.randn(*shape, device="cuda", generator=gen)
+    mu = -10.0 + 95.0 * torch.rand(*shape, device="cuda", generator=gen)
+    s2 = 10.0 ** (-8.0 + 8.6 * torch.rand(*shape, device="cuda",
+                                          generator=gen))
+    return y, mu, s2
+
+
+@pytest.mark.parametrize("shape", [(64, 999), (3, 37)])
+def test_gh_ell_kernels_match_plain(cuda, shape):
+    ins = _gh_inputs(cuda, shape)
+    a = [t.clone().requires_grad_() for t in ins]
+    b = [t.clone().requires_grad_() for t in ins]
+    before = native.launches["volt_gh_ell_backward"]
+    got = tgh.gh_expected_log_prob(*a)
+    want = tgh._gh_ell_plain(*b, 75)
+    # atol 1e-6: where the node sum cancels to near zero, only the float32
+    # rounding of its O(1..10) terms is left (about 1e-7)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    g = torch.randn(*shape, device="cuda", generator=cuda)
+    (got * g).sum().backward()
+    (want * g).sum().backward()
+    assert native.launches["volt_gh_ell_backward"] == before + 1
+    # d/dvar also gets the float32 resolution of its cancelling node sum
+    extra = (0.0, 0.0, tgh.var_grad_resolution(*ins, g))
+    for p, q, e in zip(a, b, extra):
+        tol = 1e-4 * q.grad.abs() + 1e-6 * q.grad.abs().max() + e
+        assert bool(((p.grad - q.grad).abs() <= tol).all())
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     y64 = torch.zeros(2, 5, device="cuda", dtype=torch.float64)
     with pytest.raises(TypeError):
@@ -89,3 +149,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     z = torch.zeros(2, 5, device="cuda")
     with pytest.raises(ValueError):
         ttd.kalman_forward_cuda(z, torch.ones(3, device="cuda"), z, save=False)
+    with pytest.raises(ValueError):
+        tvc.volt_covariance_cuda(torch.zeros(5, device="cuda"))
+    with pytest.raises(ValueError):
+        tgh.gh_ell_forward_cuda(z, z, torch.zeros(2, 4, device="cuda"))

@@ -153,13 +153,48 @@ def test_warm_refit(data, runs):
         warm_start(taux, shift=1)
 
 
+@pytest.mark.parametrize("repl", [
+    {"gpcv_opt": "ngvi", "gpcv_iters": 8, "vol_mll": "kalman"},
+    {"mean_func": "tewma"},
+    {"mean_func": "meanrevert", "theta": 0.05},
+], ids=["ngvi-kalman", "tewma", "meanrevert-theta"])
+def test_ported_options_match(data, repl):
+    """NGVI, the Kalman vol MLL and the other Magpie means against the JAX
+    pipeline, at the tolerances of the default run above."""
+    x, f, test_x = data
+    cfg = {**STD, **repl}
+    jout, jaux = j_fit(jax.random.key(KEY_SEED), jnp.asarray(x),
+                       jnp.asarray(f), jnp.asarray(test_x),
+                       JConfig(output="quantiles", **cfg))
+    noise = jax_pipeline_noise(jax.random.key(KEY_SEED), B, S, H)
+    tout, taux = fit_forecast_batch(None, t32(x), t32(f), t32(test_x),
+                                    PipelineConfig(output="quantiles", **cfg),
+                                    noise=noise)
+    for key in ("gpcv_loss", "vol_loss", "data_loss", "vol"):
+        close(taux[key], np.asarray(jaux[key]), 1e-3)
+    close(tout, np.asarray(jout), 2e-3, 1e-3)
+    assert taux["ok"].all()
+
+
+@pytest.mark.parametrize("mean", ["linear", "loglinear", "dewma"])
+def test_every_mean_runs(data, mean):
+    """Every mean the JAX pipeline takes runs here too (the linear means'
+    random initial weights come from the generator)."""
+    x, f, test_x = data
+    cfg = PipelineConfig(output="quantiles", mean_func=mean,
+                         **{**STD, "gpcv_iters": 5, "vol_iters": 5})
+    g = torch.Generator().manual_seed(0)
+    out, aux = fit_forecast_batch(g, t32(x), t32(f), t32(test_x), cfg)
+    assert out.shape == (B, 7, H) and aux["ok"].all()
+    assert set(aux["volt_params"]["mean"]) == (
+        {"weights", "bias"} if "linear" in mean else set())
+
+
 @pytest.mark.parametrize("field,value,exc", [
-    ("gpcv_opt", "ngvi", NotImplementedError),
     ("gpcv_opt", "sgd", ValueError),
     ("gpcv_q", "full", NotImplementedError),
     ("kernel", "fbm", NotImplementedError),
-    ("vol_mll", "kalman", NotImplementedError),
-    ("mean_func", "dewma", NotImplementedError),
+    ("vol_mll", "dense", ValueError),
     ("mean_func", "nope", ValueError),
     ("output", "paths", ValueError),
 ])

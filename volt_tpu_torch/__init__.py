@@ -7,17 +7,29 @@ imports ``torch`` and numpy, never JAX.
 
 The hand-written CUDA kernels live in ``csrc/`` and are built on first use
 (:mod:`volt_tpu_torch.native`); every kernel has a plain PyTorch version
-in the same module, which CPU tensors take.  This first slice covers the
-main path, :func:`volt_tpu_torch.parallel.fit_forecast_batch` with the BM
-kernel and the :class:`~volt_tpu_torch.parallel.PipelineConfig` defaults.
+in the same module, which CPU tensors take.  Ported so far: the batched
+main path, :func:`volt_tpu_torch.parallel.fit_forecast_batch` (BM kernel,
+tridiagonal GPCV by Adam or NGVI, spectral or Kalman vol MLL, every mean),
+and the single-asset reference API: the training entries of
+:mod:`volt_tpu_torch.train`, the forecasts of :mod:`volt_tpu_torch.rollouts`
+and :class:`~volt_tpu_torch.models.Volt`.
 """
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"
 
 from . import convert, data, gp, kernels, likelihoods, means, models, ops
 from . import parallel, rollouts, train
+from .models import Volt
 from .parallel import (PipelineConfig, fit_forecast, fit_forecast_batch,
                        warm_start)
+from .rollouts import generate_prediction
+from .rollouts import generate_prediction as GeneratePrediction
+from .rollouts import mean_prediction
+from .rollouts import rollouts as Rollouts
+from .rollouts import sample_prediction, sample_vol_paths, volt_posterior
+from .train import (LearnGPCV, TrainDataModel, TrainVolModel,
+                    TrainVoltMagpieModel, learn_gpcv, train_data_model,
+                    train_vol_model, train_volt_magpie)
 
 __all__ = [
     "convert",
@@ -31,6 +43,22 @@ __all__ = [
     "parallel",
     "rollouts",
     "train",
+    "Volt",
+    "learn_gpcv",
+    "train_vol_model",
+    "train_data_model",
+    "train_volt_magpie",
+    "LearnGPCV",
+    "TrainVolModel",
+    "TrainDataModel",
+    "TrainVoltMagpieModel",
+    "Rollouts",
+    "GeneratePrediction",
+    "sample_vol_paths",
+    "generate_prediction",
+    "sample_prediction",
+    "mean_prediction",
+    "volt_posterior",
     "PipelineConfig",
     "fit_forecast",
     "fit_forecast_batch",

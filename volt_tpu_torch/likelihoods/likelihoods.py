@@ -8,7 +8,8 @@ import torch
 from torch import nn
 
 from ..ops.constraints import GreaterThan
-from ..ops.quadrature import expected_value
+from ..ops.gh_ell import exp_log_prob, exp_scale, gh_expected_log_prob
+from ..ops.quadrature import DEFAULT_NUM_LOCS, expected_value
 
 __all__ = ["GaussianLikelihood", "VolatilityGaussianLikelihood"]
 
@@ -50,16 +51,41 @@ class VolatilityGaussianLikelihood(nn.Module):
     def scale(self, f):
         """Observation std; ``f`` capped at 80 so GH tail nodes of a wide
         ``q`` cannot overflow ``exp``."""
-        return torch.clamp(torch.exp(torch.clamp(f, max=80.0)), min=1e-3)
+        return exp_scale(f)
 
-    def expected_log_prob(self, y, mean, var):
-        """``E_{f ~ N(mean, var)}[log N(y; 0, scale(f)^2)]`` in closed form
-        (lognormal moments): ``-y^2/2 e^{-2 mean + 2 var} - mean -
-        log(2 pi)/2``, the exponent capped at 80."""
-        e = torch.exp(torch.clamp(-2.0 * mean + 2.0 * var, max=80.0))
-        return -0.5 * y * y * e - mean - 0.5 * _LOG_2PI
+    def log_prob(self, y, f):
+        """``log N(y; 0, scale(f)^2)`` elementwise."""
+        return exp_log_prob(y, f)
 
-    def expected_scale(self, mean, var):
-        """Posterior-mean predicted scale ``E_f[scale(f)]`` by 75-node
-        Gauss–Hermite."""
-        return expected_value(self.scale, mean, var)
+    def expected_log_prob(self, y, mean, var,
+                          num_locs: int = DEFAULT_NUM_LOCS,
+                          method: str | None = None):
+        """``E_{f ~ N(mean, var)}[log p(y | f)]``.
+
+        ``method=None`` or ``"analytic"``: the closed form (lognormal
+        moments) ``-y^2/2 e^{-2 mean + 2 var} - mean - log(2 pi)/2``, the
+        exponent capped at 80.  ``"quadrature"``: the reference's
+        ``num_locs``-node Gauss–Hermite term (kernel K3 on CUDA tensors).
+        The two differ below float32 resolution outside the clamp regions
+        (``scale >= 1e-3``, ``f <= 80``)."""
+        if method is None:
+            method = "analytic"
+        if method == "analytic":
+            e = torch.exp(torch.clamp(-2.0 * mean + 2.0 * var, max=80.0))
+            return -0.5 * y * y * e - mean - 0.5 * _LOG_2PI
+        if method == "quadrature":
+            return gh_expected_log_prob(y, mean, var, num_locs)
+        raise ValueError("method must be None, 'analytic' or 'quadrature'")
+
+    def expected_scale(self, mean, var, mc_samples: int | None = None,
+                       generator=None, noise=None):
+        """Posterior-mean predicted scale ``E_f[scale(f)]``: 75-node
+        Gauss–Hermite, or with ``mc_samples`` the reference's Monte-Carlo
+        estimate from ``(mc_samples, *mean.shape)`` standard normals
+        (``noise``, else drawn from ``generator``)."""
+        if mc_samples is None:
+            return expected_value(self.scale, mean, var)
+        if noise is None:
+            noise = torch.randn(mc_samples, *mean.shape, dtype=mean.dtype,
+                                device=mean.device, generator=generator)
+        return torch.mean(self.scale(noise * torch.sqrt(var) + mean), dim=0)

@@ -1,3 +1,7 @@
-from .means import ConstantMean, EWMAMean
+from .means import (ConstantMean, DEWMAMean, EWMAMean, HEWMAMean, LinearMean,
+                    LogLinearMean, MeanRevertingEMAMean, MulIdentityMean,
+                    TEWMAMean)
 
-__all__ = ["ConstantMean", "EWMAMean"]
+__all__ = ["ConstantMean", "LinearMean", "LogLinearMean", "MulIdentityMean",
+           "EWMAMean", "HEWMAMean", "DEWMAMean", "TEWMAMean",
+           "MeanRevertingEMAMean"]

@@ -3,8 +3,10 @@ slice's part of :mod:`volt_tpu.models.bmgp`).
 
 Stage 2: fit ``log(vol)`` with the BM kernel and the Itô drift mean
 ``-0.5 vol^2 t`` through the closed-form spectral MLL (elementwise O(n)
-per step on an equispaced grid), then forecast vol paths from the
-filtered last-point state plus independent Brownian increments.
+per step on an equispaced grid) or the Kalman MLL (kernel S1, any grid),
+then forecast vol paths from the filtered last-point state plus
+independent Brownian increments.  The dense MLL, posterior and sampler
+serve the reference API and grids that are not strictly future.
 """
 
 from __future__ import annotations
@@ -15,11 +17,13 @@ import math
 import torch
 from torch import nn
 
+from ..gp.exact import exact_mll, posterior
 from ..kernels import BMKernel
 from ..likelihoods import GaussianLikelihood
 from ..ops.brownian import (future_grid_ok, min_kernel_eigenvalues,
                             min_kernel_project, nan_poison)
-from ..ops.tridiag import brownian_noise_filter
+from ..ops.mvn import sample_mvn
+from ..ops.tridiag import brownian_noise_filter, brownian_noise_mll_kalman
 
 __all__ = ["BMGP", "BMGPState"]
 
@@ -32,6 +36,16 @@ class BMGPState:
     module: "BMGP"
     train_x: torch.Tensor
     train_y: torch.Tensor
+
+    def mll(self):
+        return self.module.mll(self.train_x, self.train_y)
+
+    def posterior(self, test_x):
+        return self.module.posterior(self.train_x, self.train_y, test_x)
+
+    def sample(self, test_x, sample_shape=(), generator=None, noise=None):
+        return self.module.sample(self.train_x, self.train_y, test_x,
+                                  sample_shape, generator, noise)
 
     def sample_forecast(self, test_x, nsample: int, generator=None,
                         noise=None):
@@ -62,6 +76,36 @@ class BMGP(nn.Module):
     def mean(self, x):
         """Analytic drift ``-0.5 vol^2 t``."""
         return -0.5 * self.kernel.vol() ** 2.0 * x
+
+    def mll(self, x, y):
+        """Dense exact MLL / n (a Cholesky of ``vol min(x) + noise I``)."""
+        return exact_mll(y, self.mean(x), self.kernel(x),
+                         self.likelihood.noise())
+
+    def mll_kalman(self, x, y):
+        """The same MLL in O(n) by the Kalman filter (kernel S1 on CUDA):
+        ``vol min(x) + noise I`` is a random walk with increments
+        ``vol dx`` observed in noise; any grid."""
+        vol = self.kernel.vol()[..., 0]
+        noise = self.likelihood.noise()[..., 0]
+        return brownian_noise_mll_kalman(vol[..., None] * x, noise,
+                                         y - self.mean(x))
+
+    def posterior(self, train_x, train_y, test_x):
+        """Latent posterior ``(mean (..., H), cov (..., H, H))`` at any
+        ``test_x`` by noisy dense conditioning on the train points."""
+        mean, cov = posterior(self.kernel(train_x), self.kernel(train_x, test_x),
+                              self.kernel(test_x), train_y - self.mean(train_x),
+                              self.likelihood.noise())
+        return mean + self.mean(test_x), cov
+
+    def sample(self, train_x, train_y, test_x, sample_shape=(),
+               generator=None, noise=None):
+        """Joint posterior samples ``(*sample_shape, ..., H)`` of the latent
+        log vol (``noise``: the standard normals of that shape)."""
+        mean, cov = self.posterior(train_x, train_y, test_x)
+        return sample_mvn(mean, cov, sample_shape, generator=generator,
+                          noise=noise)
 
     def spectral_cache(self, x, y):
         """Closed-form eigensystem of ``min(x)`` on an equispaced grid

@@ -1,0 +1,63 @@
+"""High-level convenience API (port of :mod:`volt_tpu.models.volt_api`):
+construct, ``Train()``, ``Forecast()``, as the reference's ``Volt`` class.
+
+The constructor takes the full log-price series and a mean name;
+``Train`` runs GPCV -> vol GP -> data model (or skips GPCV for a supplied
+``vol_path``); ``Forecast`` runs the Markov rollout.  The batched
+``(T, n)`` construction (the Kronecker multitask vol GP) is not ported.
+"""
+
+from __future__ import annotations
+
+from ..rollouts import rollouts
+from ..train import learn_gpcv, train_vol_model, train_volt_magpie
+
+__all__ = ["Volt"]
+
+
+class Volt:
+    def __init__(self, train_x, log_data, mean: str = "constant",
+                 vol_path=None, k: int = 25, rank: int = 1):
+        """``train_x`` ``(n,)`` is the full grid and ``log_data`` ``(n,)``
+        the log prices; ``vol_path`` ``(n-1,)`` optionally supplies the
+        volatility path, skipping the GPCV stage."""
+        if log_data.dim() > 1:
+            raise NotImplementedError(
+                "Volt with (T, n) data (the multitask vol GP) is not ported "
+                "yet (ROADMAP slice D, items 20-21)")
+        self.train_x = train_x
+        self.log_data = log_data
+        self.mean_name = mean
+        self.k = k
+        self.rank = rank
+        self.vol_path = vol_path
+        self.model = None
+
+    def Train(self, gpcv_iters: int = 400, vol_mod_iters: int = 1000,
+              data_mod_iters: int = 400, display: bool = False,
+              generator=None):
+        """GPCV (NGVI) -> vol GP -> data model (reference ``Volt.Train``);
+        ``generator`` draws the data model's random initial values (the
+        linear means')."""
+        x = self.train_x
+        data = self.log_data.exp()
+        vol = self.vol_path
+        if vol is None:
+            vol = learn_gpcv(x[1:], data, gpcv_iters, printing=display)
+        vol_state = train_vol_model(x[1:], vol, vol_mod_iters,
+                                    printing=display)
+        self.model = train_volt_magpie(
+            x[1:], data[1:], vol_state, vol, train_iters=data_mod_iters,
+            printing=display, k=self.k, mean_func=self.mean_name,
+            generator=generator)
+        return self.model
+
+    def Forecast(self, test_x, nsample: int = 50, mean_revert: bool = False,
+                 theta: float = 0.05, generator=None, noise=None):
+        """MC forecast samples of log prices ``(nsample, H)``; ``noise`` as
+        :func:`~volt_tpu_torch.rollouts.rollouts` takes it."""
+        if self.model is None:
+            raise RuntimeError("call Train() first")
+        return rollouts(generator, self.model, self.train_x[1:],
+                        self.log_data.exp(), test_x, nsample=nsample,
+                        theta=theta if mean_revert else None, noise=noise)

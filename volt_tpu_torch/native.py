@@ -1,10 +1,11 @@
 """Build and bind the port's hand-written CUDA kernels.
 
-The sources in ``csrc/`` have a plain C interface.  On first use they are
-compiled with ``nvcc`` for Hopper (``sm_90a``) into one shared library
-under ``_build/`` (keyed by a hash of the sources and flags, so an edited
-source rebuilds) and loaded with ``ctypes``.  Nothing here runs at import:
-the CPU never needs the library.
+The sources in ``csrc/`` have a plain C interface.  On first use each is
+compiled with its own ``nvcc`` for Hopper (``sm_90a``), all at once, and
+the objects are linked into one shared library under ``_build/`` (keyed
+by a hash of the sources and flags, so an edited source rebuilds), which
+is loaded with ``ctypes``.  Nothing here runs at import: the CPU never
+needs the library.
 
 :func:`launch` is the one place a kernel is launched: it passes tensor
 pointers and PyTorch's current stream, raises on the ``cudaError_t`` the C
@@ -29,9 +30,9 @@ __all__ = ["library", "launch", "launches", "check_tensors", "build_log"]
 _HERE = Path(__file__).resolve().parent
 _CSRC = _HERE / "csrc"
 _BUILD = _HERE / "_build"
-_SOURCES = ("ewma_filter.cu", "kalman.cu")
+_SOURCES = ("ewma_filter.cu", "kalman.cu", "volt_cov.cu", "gh_ell.cu")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+          "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -41,6 +42,9 @@ _SIGNATURES = {
     "volt_kalman_forward": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
     "volt_kalman_backward": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                              _I, _I, _P),
+    "volt_covariance": (_P, _P, _I, _I, _P),
+    "volt_gh_ell_forward": (_P, _P, _P, _P, _P, _I, _I, _P),
+    "volt_gh_ell_backward": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
 }
 
 # Launches per C entry point since the last ``launches.clear()``.
@@ -75,20 +79,35 @@ def build_log() -> str:
     return log.read_text() if log.exists() else ""
 
 
+def _run_all(cmds):
+    """Run the commands at once; raise on the first that fails."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs = [p.communicate()[0] for p in procs]
+    for cmd, proc, log in zip(cmds, procs, logs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{log}")
+    return "".join(logs)
+
+
 @functools.cache
 def library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library."""
     so = _library_path()
     if not so.exists():
         _BUILD.mkdir(exist_ok=True)
-        tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *_FLAGS, "-o", str(tmp),
-               *(str(_CSRC / s) for s in _SOURCES)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{proc.stderr}")
-        so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+        nvcc = _nvcc()
+        tag = f"{so.stem}.{os.getpid()}"
+        objs = [_BUILD / f"{tag}.{Path(s).stem}.o" for s in _SOURCES]
+        log = _run_all([[nvcc, *_FLAGS, "-c", "-o", str(o), str(_CSRC / s)]
+                        for s, o in zip(_SOURCES, objs)])
+        tmp = so.with_name(f"{tag}.tmp")
+        _run_all([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
+        for o in objs:
+            o.unlink()
+        so.with_suffix(".log").write_text(log)
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():

@@ -1,5 +1,6 @@
 """Numerical primitives of the port: plain tensor functions, plus the
-wrappers of the hand-written CUDA kernels (``ewma``, the Kalman MLL)."""
+wrappers of the hand-written CUDA kernels (``ewma``, the Kalman MLL,
+``volt_covariance``, ``gh_expected_log_prob``)."""
 
 from .bidiag import (
     affine_scan,
@@ -17,15 +18,26 @@ from .brownian import (
     min_kernel_spectrum,
     nan_poison,
 )
+from .chol import (
+    cholesky_solve,
+    psd_safe_cholesky,
+    solve_lower_triangular,
+    solve_upper_triangular,
+    tril_inverse_quad,
+)
 from .constraints import GreaterThan, Interval, Positive, inv_softplus, softplus
 from .ewma import ewma, ewma_weights
+from .gh_ell import gh_expected_log_prob
+from .mvn import conditional, mvn_log_prob, mvn_log_prob_chol, sample_mvn
 from .quadrature import expected_value, gauss_hermite_nodes
 from .tridiag import (
     brownian_noise_filter,
     brownian_noise_mll_kalman,
     tridiag_ldl_pivots,
 )
-from .volint import cumtrapz_weights, vol_integral
+from .volint import (brownian_cholesky, cumtrapz_weights,
+                     min_index_covariance, vol_integral)
+from .volt_cov import volt_covariance
 
 __all__ = [
     "affine_scan",
@@ -40,6 +52,11 @@ __all__ = [
     "min_kernel_project",
     "min_kernel_spectrum",
     "nan_poison",
+    "cholesky_solve",
+    "psd_safe_cholesky",
+    "solve_lower_triangular",
+    "solve_upper_triangular",
+    "tril_inverse_quad",
     "GreaterThan",
     "Interval",
     "Positive",
@@ -47,11 +64,19 @@ __all__ = [
     "softplus",
     "ewma",
     "ewma_weights",
+    "gh_expected_log_prob",
+    "conditional",
+    "mvn_log_prob",
+    "mvn_log_prob_chol",
+    "sample_mvn",
     "expected_value",
     "gauss_hermite_nodes",
     "brownian_noise_filter",
     "brownian_noise_mll_kalman",
     "tridiag_ldl_pivots",
+    "brownian_cholesky",
     "cumtrapz_weights",
+    "min_index_covariance",
     "vol_integral",
+    "volt_covariance",
 ]

@@ -3,10 +3,11 @@
 
 ``fit_forecast_batch`` runs, for ``B`` assets at once on one device:
 
-1. GPCV: Adam on the tridiagonal-precision ELBO -> the vol path;
-2. the vol GP: Adam on the spectral MLL of ``log(vol)``;
+1. GPCV: Adam (or NGVI) on the tridiagonal-precision ELBO -> the vol
+   path;
+2. the vol GP: Adam on the spectral (or Kalman) MLL of ``log(vol)``;
 3. the Volt data model: Adam on the Kalman MLL (kernel S1 on CUDA), with
-   the EWMA train mean (kernel K1 on CUDA) computed once outside the loss;
+   a Magpie train mean (kernel K1 on CUDA) computed once outside the loss;
 4. the Markov Monte-Carlo rollout, then the quantile fan or the paths.
 
 JAX ``vmap``s one asset's program over the batch; here every tensor has a
@@ -20,16 +21,15 @@ import dataclasses
 import time
 from typing import Optional
 
-import numpy as np
 import torch
 
 from ..convert import load_jax_params, params_tree
 from ..models.bmgp import BMGP
 from ..models.gpcv import GPCVModel
 from ..models.volt import VoltGP, make_mean
-from ..ops.tridiag import brownian_noise_mll_kalman
 from ..rollouts import _rollout_volt_scan, sample_vol_paths
-from ..train import adam_loop, scaled_returns
+from ..train import (_fit_bmgp, _fit_gpcv, _fit_volt, _is_equispaced,
+                     scaled_returns)
 
 __all__ = ["PipelineConfig", "fit_forecast", "fit_forecast_batch",
            "warm_start"]
@@ -38,9 +38,9 @@ __all__ = ["PipelineConfig", "fit_forecast", "fit_forecast_batch",
 @dataclasses.dataclass(frozen=True)
 class PipelineConfig:
     """Static configuration of the pipeline (the JAX package's fields and
-    defaults).  The port runs the BM / tridiag / Adam / spectral slice
-    with the ``ewma`` and ``constant`` means; other values raise
-    ``NotImplementedError`` naming the ROADMAP item that ports them."""
+    defaults).  The port runs the BM kernel and the tridiagonal GPCV;
+    ``kernel="fbm"`` and ``gpcv_q="full"`` raise ``NotImplementedError``
+    naming the ROADMAP item that ports them."""
 
     gpcv_iters: int = 300
     vol_iters: int = 300
@@ -62,12 +62,13 @@ class PipelineConfig:
     integral_rule: str = "reference"
 
 
-# (field, the port's value, the other legal values, ROADMAP item)
-_SLICE = (
-    ("kernel", "bm", ("fbm",), "slice C, item 16"),
-    ("gpcv_q", "tridiag", ("full",), "slice B, item 11"),
-    ("gpcv_opt", "adam", ("ngvi",), "slice B, item 11"),
-    ("vol_mll", "spectral", ("kalman",), "slice B, item 11"),
+# (field, the port's values, the values not ported yet, ROADMAP item)
+_FIELDS = (
+    ("kernel", ("bm",), ("fbm",), "slice C, item 16"),
+    ("gpcv_q", ("tridiag",), ("full",), "slice B, item 11"),
+    ("gpcv_opt", ("adam", "ngvi"), (), None),
+    ("vol_mll", ("spectral", "kalman"), (), None),
+    ("output", ("samples", "quantiles"), (), None),
 )
 
 
@@ -75,19 +76,16 @@ def _resolve_config(config: PipelineConfig) -> PipelineConfig:
     """Reject what the port cannot run: ``ValueError`` for values the JAX
     package does not know either, ``NotImplementedError`` for the parts
     not ported yet."""
-    for field, ours, others, item in _SLICE:
+    for field, ours, others, item in _FIELDS:
         value = getattr(config, field)
         if value in others:
             raise NotImplementedError(
                 f"PipelineConfig({field}={value!r}) is not ported yet "
-                f"(ROADMAP {item}); the port runs {field}={ours!r}")
-        if value != ours:
+                f"(ROADMAP {item}); the port runs {field} in {ours}")
+        if value not in ours:
             raise ValueError(f"PipelineConfig.{field} must be one of "
-                             f"{(ours, *others)}, got {value!r}")
-    make_mean(config.mean_func, k=config.k)  # raises for other means
-    if config.output not in ("samples", "quantiles"):
-        raise ValueError(f"PipelineConfig.output must be 'samples' or "
-                         f"'quantiles', got {config.output!r}")
+                             f"{(*ours, *others)}, got {value!r}")
+    make_mean(config.mean_func, k=config.k)  # raises for unknown means
     return config
 
 
@@ -98,18 +96,6 @@ def _check_min_length(train_x):
         raise ValueError(f"the pipeline needs at least 11 train points (the "
                          f"GPCV running-std init uses the 11th entry), got "
                          f"n={n}")
-
-
-def _is_equispaced(x) -> bool:
-    """Uniform grid within ``max(1e-3 relative, 4 eps_f32 max|x|)``."""
-    xv = np.asarray(x.detach().cpu() if torch.is_tensor(x) else x)
-    if xv.ndim != 1 or xv.shape[0] < 3:
-        return False
-    d = np.diff(np.asarray(xv, np.float64))
-    med = float(np.median(d))
-    tol = max(1e-3 * abs(med),
-              4.0 * float(np.finfo(np.float32).eps) * float(np.max(np.abs(xv))))
-    return bool(np.all(np.abs(d - med) <= tol))
 
 
 def _check_spectral_grid(train_x, config: PipelineConfig):
@@ -136,25 +122,6 @@ class _StageClock:
         now = self._now()
         self.seconds[stage] = now - self._last
         self._last = now
-
-
-def _volt_data_fit(volt: VoltGP, train_x, log_y, vol, iters, lr):
-    """Stage-3 core: Adam on the Kalman MLL of the Volt data model.  The
-    EWMA mean is parameter-free, so it is computed once outside the loss."""
-    v_integral = volt.kernel.integral(train_x, vol)
-    if volt.mean.is_history_dependent:
-        resid = log_y - volt.train_mean(train_x, log_y)
-
-        def data_loss():
-            noise = volt.likelihood.noise()[..., 0]
-            return -brownian_noise_mll_kalman(v_integral, noise, resid)
-    else:
-        def data_loss():
-            noise = volt.likelihood.noise()[..., 0]
-            mv = volt.train_mean(train_x, log_y)
-            return -brownian_noise_mll_kalman(v_integral, noise, log_y - mv)
-
-    return adam_loop(volt, data_loss, iters, lr)
 
 
 def fit_forecast_batch(generator, train_x, train_ys, test_x,
@@ -191,21 +158,21 @@ def fit_forecast_batch(generator, train_x, train_ys, test_x,
 
     # ---- stage 1: GPCV ----------------------------------------------------
     yy = scaled_returns(train_x, train_ys)
-    gpcv = GPCVModel(q=config.gpcv_q)
+    gpcv = GPCVModel(kernel=config.kernel, num_locs=config.num_locs,
+                     q=config.gpcv_q)
     start(gpcv, "gpcv", lambda: gpcv.init(train_x, yy))
-    gpcv_losses = adam_loop(gpcv, lambda: -gpcv.elbo(train_x, yy),
-                            config.gpcv_iters, config.gpcv_lr)
+    gpcv_losses = _fit_gpcv(gpcv, train_x, yy, config.gpcv_iters,
+                            config.gpcv_lr, config.gpcv_opt)
     with torch.no_grad():
         vol = gpcv.predicted_scale()
     clock.mark("gpcv")
 
-    # ---- stage 2: vol GP (closed-form spectral MLL) -----------------------
+    # ---- stage 2: vol GP (spectral or Kalman MLL) -------------------------
     log_vol = torch.log(vol)
     bm = BMGP(kernel=config.kernel)
     start(bm, "vol", lambda: bm.init(batch, dtype, device))
-    vol_cache = bm.spectral_cache(train_x, log_vol)
-    vol_losses = adam_loop(bm, lambda: -bm.mll_spectral(vol_cache),
-                           config.vol_iters, config.vol_lr)
+    vol_losses = _fit_bmgp(bm, train_x, log_vol, config.vol_iters,
+                           config.vol_lr, config.vol_mll == "spectral")
     vol_state = bm.fit_state(train_x, log_vol)
     clock.mark("vol")
 
@@ -213,9 +180,9 @@ def fit_forecast_batch(generator, train_x, train_ys, test_x,
     log_y = torch.log(train_ys[..., 1:])
     volt = VoltGP(mean=make_mean(config.mean_func, k=config.k),
                   integral_rule=config.integral_rule)
-    start(volt, "volt", lambda: volt.init(batch, dtype, device))
-    data_losses = _volt_data_fit(volt, train_x, log_y, vol,
-                                 config.data_iters, config.data_lr)
+    start(volt, "volt", lambda: volt.init(batch, dtype, device, generator))
+    data_losses = _fit_volt(volt, train_x, log_y, vol, config.data_iters,
+                            config.data_lr)
     model = volt.fit_state(train_x, log_y, vol, vol_state)
     clock.mark("data")
 
@@ -228,7 +195,7 @@ def fit_forecast_batch(generator, train_x, train_ys, test_x,
         vol_noise = None if noise is None else (noise["vol_r0"],
                                                 noise["vol_z"])
         pred_vol = sample_vol_paths(vol_state, test_x, s, generator,
-                                    vol_noise)
+                                    vol_noise, assume_future=True)
         zs = (torch.randn(*batch, s, h, dtype=dtype, device=device,
                           generator=generator) if noise is None
               else noise["zs"])

@@ -1,30 +1,75 @@
-"""Monte-Carlo forecasting (port of the slice's part of
-:mod:`volt_tpu.rollouts`).
+"""Monte-Carlo forecasting (port of :mod:`volt_tpu.rollouts`).
 
 The volatility kernel's min-index structure makes the autoregressive
 conditional Markov: given the sampled history, the next log price is
 ``m(t) + (y_prev - m_prev)`` plus noise whose variance is one increment
 of the running vol integral.  So the rollout is one loop over the horizon,
-vectorised over assets and paths, with the EWMA mean advanced in O(1) per
-step.
+vectorised over assets and paths, with the Magpie means advanced in O(1)
+per step.  The one-shot predictions sample the same Markov conditional
+over the whole horizon.  The ``*_dense`` twins restate the reference's
+dense algebra (the joint covariance through kernel K2 on CUDA, a Cholesky
+and a solve per step); they are the oracle the Markov forms are held to.
+
+``generator`` takes the place of the JAX ``key``; each function also takes
+the standard normals it would draw (``noise`` / ``zs``), so a run can be
+given exactly the JAX package's draws.
 """
 
 from __future__ import annotations
 
 import torch
 
+from .kernels import BMKernel
+from .means import MeanRevertingEMAMean
 from .models.volt import VoltState
+from .ops.mvn import conditional, sample_mvn
 
-__all__ = ["sample_vol_paths", "_rollout_volt_scan"]
+__all__ = [
+    "sample_vol_paths",
+    "rollouts",
+    "generate_prediction",
+    "sample_prediction",
+    "mean_prediction",
+    "volt_posterior",
+    "generate_prediction_dense",
+    "rollouts_dense",
+    "_rollout_volt_scan",
+]
+
+
+def _strictly_future(test_x, train_x) -> bool:
+    """Host-side check of the forecast contract: ``test_x`` increasing and
+    strictly after the train grid."""
+    tx, tr = test_x.detach().cpu(), train_x.detach().cpu()
+    return bool(torch.all(torch.diff(tx, dim=-1) > 0)
+                and torch.all(tx[..., 0] > tr[..., -1]))
 
 
 def sample_vol_paths(vol_state, test_x, nsample: int, generator=None,
-                     noise=None):
+                     noise=None, assume_future: bool | None = None):
     """``exp`` of ``nsample`` joint forecasts of the log-vol GP at
-    strictly-future ``test_x`` (the BM kernel's filtered-state closed form;
-    other grids come back NaN).  ``(..., nsample, H)``."""
-    return torch.exp(vol_state.sample_forecast(test_x, nsample, generator,
-                                               noise))
+    ``test_x``: ``(..., nsample, H)``.
+
+    On a strictly-future grid (checked on the host unless
+    ``assume_future`` is given) the BM kernel's filtered-state closed form
+    (``noise``: ``(r0 (..., S), z (..., S, H))``); otherwise, or with
+    ``assume_future=False``, the dense posterior sampler (``noise``: its
+    standard normals ``(S, ..., H)``).  With ``assume_future=True`` a
+    violating grid comes back NaN."""
+    fast = (isinstance(vol_state.module.kernel, BMKernel)
+            and assume_future is not False
+            and (assume_future is True
+                 or _strictly_future(test_x, vol_state.train_x)))
+    if fast:
+        return torch.exp(vol_state.sample_forecast(test_x, nsample, generator,
+                                                   noise))
+    log_paths = vol_state.sample(test_x, (nsample,), generator, noise)
+    return torch.exp(log_paths.movedim(0, -2))
+
+
+# ---------------------------------------------------------------------------
+# Autoregressive rollout — Markov fast path
+# ---------------------------------------------------------------------------
 
 
 def _rollout_volt_scan(model: VoltState, latent_mean, test_x, pred_vol, zs,
@@ -90,3 +135,242 @@ def _rollout_volt_scan(model: VoltState, latent_mean, test_x, pred_vol, zs,
         out.append(y_t)
         y_prev, m_prev = y_t, m_t
     return torch.stack(out, dim=-1)
+
+
+def _draw(generator, like, *shape):
+    return torch.randn(*shape, dtype=like.dtype, device=like.device,
+                       generator=generator)
+
+
+def rollouts(generator, model: VoltState, train_x, train_y, test_x,
+             nsample: int = 50, method: str = "volt", theta=None,
+             assume_future: bool | None = None, noise=None):
+    """Autoregressive MC forecast (reference ``Rollouts``): log-price
+    samples ``(..., nsample, H)``.
+
+    ``train_y`` is the full price series (one longer than the model grid);
+    it gives only the mean-reversion target ``mean(log(train_y))`` when
+    ``theta`` is set.  ``noise`` optionally gives the standard normals
+    ``{"vol_r0": (..., S), "vol_z": (..., S, H), "zs": (..., S, H)}``
+    (the vol forecast's and the rollout's); otherwise they are drawn from
+    ``generator``."""
+    del train_x  # the model state carries its grid; kept for API parity
+    if method != "volt":
+        raise NotImplementedError("non-volt rollouts are not ported yet "
+                                  "(ROADMAP slice C, item 19)")
+    with torch.no_grad():
+        y = model.train_y
+        use_theta = theta is not None
+        latent = (torch.mean(torch.log(train_y.to(y.dtype)), dim=-1)
+                  if use_theta else torch.zeros((), dtype=y.dtype,
+                                                device=y.device))
+        vol_noise = None if noise is None else (noise["vol_r0"],
+                                                noise["vol_z"])
+        pred_vol = sample_vol_paths(model.vol_state, test_x, nsample,
+                                    generator, vol_noise, assume_future)
+        zs = (_draw(generator, y, *pred_vol.shape) if noise is None
+              else noise["zs"])
+        return _rollout_volt_scan(model, latent, test_x, pred_vol, zs,
+                                  use_theta, theta if use_theta else 0.0)
+
+
+# ---------------------------------------------------------------------------
+# One-shot prediction (non-autoregressive), deterministic means
+# ---------------------------------------------------------------------------
+
+
+def _joint_integral_increments(model: VoltState, test_x, pred_vol):
+    """Per-test-point increments of the vol integral on the joint grid:
+    ``dx`` everywhere except the joint grid's halved last point under the
+    reference rule; ``dx (v_t^2 + v_{t-1}^2) / 2`` under the trapezoid
+    rule (``v_{-1}`` the last train vol)."""
+    dx = model.train_x[..., 1] - model.train_x[..., 0]
+    if model.module.kernel.integral_rule == "trapezoid":
+        pv2 = pred_vol * pred_vol
+        v_last2 = torch.exp(2.0 * model.log_vol_path[..., -1])
+        prev2 = torch.cat([v_last2[..., None].expand(*pv2.shape[:-1], 1),
+                           pv2[..., :-1]], dim=-1)
+        return 0.5 * dx * (pv2 + prev2)
+    w = dx * torch.ones(test_x.shape[-1], dtype=pred_vol.dtype,
+                        device=pred_vol.device)
+    w[-1] = 0.5 * dx
+    return w * pred_vol * pred_vol
+
+
+def _markov_mean(model: VoltState, test_x, latent_mean, theta):
+    """``m(test) + r_last``, reverted toward ``latent_mean`` if given."""
+    mean_mod = model.module.mean
+    if mean_mod.is_history_dependent:
+        raise ValueError(
+            "one-shot prediction requires a deterministic mean (the "
+            "reference routes Magpie means through Rollouts; "
+            "GenerateMultiMeanPreds.py:110-119)")
+    r_last = model.train_y[..., -1] - mean_mod(model.train_x)[..., -1]
+    pred_mean = mean_mod(test_x) + r_last[..., None]
+    if latent_mean is not None:
+        pred_mean = pred_mean - theta * (pred_mean - latent_mean)
+    return pred_mean
+
+
+def generate_prediction(generator, model: VoltState, test_x, pred_vol,
+                        n_sample: int = 1, latent_mean=None,
+                        theta: float = 0.5, noise=None):
+    """One-shot conditional sampling over the whole horizon (reference
+    ``GeneratePrediction``): ``(..., n_sample, H)`` log-price samples,
+    time-changed Brownian increments around the Markov conditional mean.
+    ``pred_vol``: ``(..., H)``; ``noise``: the standard normals
+    ``(..., n_sample, H)``."""
+    with torch.no_grad():
+        pred_mean = _markov_mean(model, test_x, latent_mean, theta)
+        incs = _joint_integral_increments(model, test_x, pred_vol)
+        batch = torch.broadcast_shapes(pred_vol.shape[:-1],
+                                       pred_mean.shape[:-1])
+        if noise is None:
+            noise = _draw(generator, pred_vol, *batch, n_sample,
+                          test_x.shape[-1])
+        return pred_mean[..., None, :] + torch.cumsum(
+            torch.sqrt(incs)[..., None, :] * noise, dim=-1)
+
+
+def sample_prediction(generator, model: VoltState, test_x, n_sample: int = 1,
+                      return_vol: bool = False, noise=None):
+    """One dense vol-path draw, then ``n_sample`` price paths (reference
+    ``VoltronGP.SamplePrediction``).  ``noise``: ``{"vol": (..., H),
+    "z": (..., n_sample, H)}`` standard normals."""
+    with torch.no_grad():
+        pred_vol = torch.exp(model.vol_state.sample(
+            test_x, (), generator, None if noise is None else noise["vol"]))
+    pred = generate_prediction(generator, model, test_x, pred_vol, n_sample,
+                               noise=None if noise is None else noise["z"])
+    return (pred, pred_vol) if return_vol else pred
+
+
+def mean_prediction(generator, model: VoltState, test_x, n_sample: int = 1,
+                    return_vol: bool = False, noise=None):
+    """Like :func:`sample_prediction` with the posterior-mean vol path
+    (reference ``VoltronGP.MeanPrediction``); ``noise``: ``(..., n_sample,
+    H)``."""
+    with torch.no_grad():
+        pred_vol = torch.exp(model.vol_state.posterior(test_x)[0])
+    pred = generate_prediction(generator, model, test_x, pred_vol, n_sample,
+                               noise=noise)
+    return (pred, pred_vol) if return_vol else pred
+
+
+def volt_posterior(model: VoltState, test_x, pred_vol, latent_mean=None,
+                   theta: float = 0.5):
+    """The closed-form conditional over the horizon that
+    :func:`generate_prediction` samples: ``(mean (..., H), cov (..., H,
+    H))`` with ``cov[s, t]`` the integral increments summed up to
+    ``min(s, t)``."""
+    with torch.no_grad():
+        pred_mean = _markov_mean(model, test_x, latent_mean, theta)
+        cum = torch.cumsum(_joint_integral_increments(model, test_x, pred_vol),
+                           dim=-1)
+        idx = torch.arange(test_x.shape[-1], device=cum.device)
+        cov = torch.where(idx[:, None] <= idx[None, :], cum[..., :, None],
+                          cum[..., None, :])
+        return pred_mean, cov
+
+
+# ---------------------------------------------------------------------------
+# Dense reference restatements (the oracle of the Markov forms)
+# ---------------------------------------------------------------------------
+
+
+def _blocks(cov, n):
+    return cov[..., :n, :n], cov[..., :n, n:], cov[..., n:, n:]
+
+
+def generate_prediction_dense(generator, model: VoltState, test_x, pred_vol,
+                              n_sample: int = 1, latent_mean=None,
+                              theta: float = 0.5, noise=None):
+    """Literal dense restatement of ``rollout_utils.GeneratePrediction``:
+    the joint covariance (kernel K2 on CUDA), psd-safe Cholesky with jitter
+    1e-4, the conditional, Cholesky sampling.  ``pred_vol``: ``(..., H)``;
+    ``noise``: the sampler's standard normals ``(n_sample, ..., H)``.
+    Returns ``(..., n_sample, H)``."""
+    with torch.no_grad():
+        mean_mod = model.module.mean
+        n = model.train_x.shape[-1]
+        full_x = torch.cat([model.train_x, test_x], -1)
+        vol = torch.exp(model.log_vol_path)
+        batch = pred_vol.shape[:-1]
+        full_vol = torch.cat([vol.expand(*batch, n), pred_vol], -1)
+        k_tr, k_tr_te, k_te = _blocks(model.module.kernel(full_x, full_vol), n)
+        if mean_mod.is_history_dependent:
+            if test_x.shape[-1] != 1:
+                raise ValueError("dense path supports Magpie means only for "
+                                 "single-point queries (as in Rollouts)")
+            train_mean = mean_mod.train_values(model.train_y)
+            m_test = mean_mod.last_value(model.train_y)[..., None]
+        else:
+            train_mean = mean_mod(model.train_x)
+            m_test = mean_mod(test_x)
+        resid = (model.train_y - train_mean).expand(*batch, n)
+        cond_mean, cond_cov = conditional(k_tr, k_tr_te, k_te, resid,
+                                          jitter=1e-4)
+        pred_mean = cond_mean + m_test
+        if latent_mean is not None:
+            pred_mean = pred_mean - theta * (pred_mean - latent_mean)
+        samples = sample_mvn(torch.zeros_like(pred_mean), cond_cov,
+                             (n_sample,), jitter=1e-4, generator=generator,
+                             noise=noise)
+        return samples.movedim(0, -2) + pred_mean[..., None, :]
+
+
+def rollouts_dense(generator, model: VoltState, train_x, train_y, test_x,
+                   nsample: int = 50, theta=None, pred_vol=None, zs=None):
+    """Literal dense restatement of the reference's autoregressive loop:
+    at every step the joint covariance of the grown series (kernel K2 on
+    CUDA, ``(..., S, n+t+1, n+t+1)``), the psd-safe factor (jitter 1e-4),
+    the conditional and one draw.  ``pred_vol`` and ``zs`` ``(..., S, H)``
+    pin the vol paths and the per-step standard normals, so the result can
+    be held per path against :func:`_rollout_volt_scan` on the same
+    inputs.  Returns ``(..., S, H)``."""
+    del train_x  # the model state carries its grid; kept for API parity
+    with torch.no_grad():
+        kernel = model.module.kernel
+        mean_mod = model.module.mean
+        y0 = model.train_y
+        latent = (torch.mean(torch.log(train_y.to(y0.dtype)), dim=-1)
+                  [..., None, None] if theta is not None else None)
+        # the meanrevert latent mean is frozen at the construction-time
+        # series mean (reference EWMA.py:124)
+        mr_latent = (torch.mean(y0, dim=-1, keepdim=True)[..., None, :]
+                     if isinstance(mean_mod, MeanRevertingEMAMean) else None)
+        if pred_vol is None:
+            pred_vol = sample_vol_paths(model.vol_state, test_x, nsample,
+                                        generator)
+        n0 = y0.shape[-1]
+        xs = model.train_x
+        ys = y0[..., None, :].expand(*y0.shape[:-1], nsample, n0)
+        vols = torch.exp(model.log_vol_path)[..., None, :].expand_as(ys)
+        out = []
+        for t in range(test_x.shape[-1]):
+            n = xs.shape[-1]
+            full_x = torch.cat([xs, test_x[t:t + 1]], -1)
+            full_vol = torch.cat([vols, pred_vol[..., t:t + 1]], -1)
+            k_tr, k_tr_te, k_te = _blocks(kernel(full_x, full_vol), n)
+            if mean_mod.is_history_dependent:
+                extra = () if mr_latent is None else (mr_latent,)
+                train_mean = mean_mod.train_values(ys, *extra)
+                m_test = mean_mod.last_value(ys, *extra)[..., None]
+            else:
+                train_mean = mean_mod(xs)
+                m_test = mean_mod(test_x[t:t + 1])
+            cond_mean, cond_cov = conditional(k_tr, k_tr_te, k_te,
+                                              ys - train_mean, jitter=1e-4)
+            pred_mean = cond_mean + m_test
+            if latent is not None:
+                pred_mean = pred_mean - theta * (pred_mean - latent)
+            if zs is None:
+                y_t = sample_mvn(pred_mean, cond_cov, jitter=1e-4,
+                                 generator=generator)[..., 0]
+            else:
+                sd = torch.sqrt(torch.clamp(cond_cov[..., 0, 0], min=0.0))
+                y_t = pred_mean[..., 0] + sd * zs[..., t]
+            out.append(y_t)
+            xs, vols = full_x, full_vol
+            ys = torch.cat([ys, y_t[..., None]], -1)
+        return torch.stack(out, dim=-1)
