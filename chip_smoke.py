@@ -14,13 +14,22 @@ Phases, each printed with its time; any failure exits non-zero:
 2. build: compile the hand-written kernels from ``volt_tpu_torch/csrc``
    (one ``nvcc`` per source, all at once);
 3. kernels against their plain PyTorch versions on the card, float32, at
-   the shapes their paths give them, timed with CUDA events over
-   back-to-back calls (the plain Kalman loop: one call per run):
+   the shapes their paths give them, timed with CUDA events: each kernel
+   per call through its wrapper (``ms``: 20 back-to-back calls) and on
+   the device alone (``device_ms``: 20 launches captured in a CUDA graph
+   and replayed); the plain versions and the library call per call, the
+   library call also on the device alone (the plain Kalman loop: one call
+   per run):
    K1 (EWMA filter, max abs error <= 1e-5 max|y|); S1 (Kalman MLL forward
-   and adjoint: value and final state rtol 1e-5; gradients rtol 1e-4,
-   atol 1e-6 of the largest gradient, since d/dv differences neighbouring
-   d/d(delta)); K2 (dense Volt covariance: exact, it copies values of the
-   integral; its gradient rtol 1e-5); K3 (GH-75 expected log-likelihood on
+   and adjoint, a chunked scan computed in float64 inside, at (64, 999),
+   (1, 999), (3, 1), (5, 33), (500, 999) and (16, 16000), by
+   ``ops.tridiag.kalman_agreement``: value and final state rtol 1e-5 from
+   a float64 run of the plain loop, since on long rows the float32 loop's
+   own rounding passes that tolerance; gradients rtol 1e-4, atol 1e-6 of
+   the largest, from the float32 plain loop, since d/dv differences
+   neighbouring d/d(delta); the other distances are printed); K2 (dense
+   Volt covariance: exact, it copies values of the integral; its gradient
+   rtol 1e-5); K3 (GH-75 expected log-likelihood on
    inputs in both clamp regions: forward rtol 1e-5 with atol 1e-6 for sums
    that cancel to near zero; gradients as S1's, d/dvar plus the float32
    error bound of its 75-term node sum, which cancels to a value
@@ -52,18 +61,37 @@ Phases, each printed with its time; any failure exits non-zero:
    package) within the pipeline parity tolerances.
 
 Launch counts are reset before each of phases 4-6 and read after it; a
-kernel's ``launches`` is the count from the phase that drives its path.
-The second-to-last line is a JSON object with each kernel's launches,
-error and times; the last is ``{"ok": true, "device": {...}}``.  Without a
-CUDA device, or outside a checkout of the repository, it exits non-zero
-and prints no result.
+kernel's ``launches`` is the count from the phase that drives its path,
+and ``launches_by_path`` its counts in the quantiles call of phase 4 and
+in ``Volt().Train()`` alone (S1 must launch in both).  The second-to-last
+line is a JSON object with each kernel's launches, error, times, bound
+(``bound_ms``: the larger of its bytes over 3.35 TB/s and its operations
+over the H100's peak for their type, ``bound_by`` says which) and the
+time of one library call computing the same function where there is one
+(``library_ms``, else null); the last is ``{"ok": true, "device": {...}}``.
+Without a CUDA device, or outside a checkout of the repository, it exits
+non-zero and prints no result.
+
+Two trees of the port against each other on one card::
+
+    python3 chip_smoke.py --ab PARENT_DIR --phase kalman_times \\
+        --phase main_path --phase main_path
+
+runs the named phases (``PHASES``; a phase named twice runs twice, the
+first cold) in four fresh processes, in the trees parent, this one, this
+one, parent, each with its own package and kernels and this file's
+phases and timers.  It prints one JSON line per process and writes the
+four to ``--out`` (default ``chiprun_out/chip_ab.json``).  ``--phase``
+alone runs the phases in this tree, or in ``--package-root``.
 """
 
+import argparse
 import json
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 
 def fail(msg):
@@ -95,9 +123,51 @@ def cuda_ms(torch, fn, reps=5, calls=20):
     return statistics.median(times[1:])
 
 
+# Published peaks of one H100 SXM (NVIDIA's data sheet, dense): HBM
+# 3.35 TB/s, float32 67 TFLOP/s and float64 34 TFLOP/s outside the tensor
+# cores.  A transcendental or a division counts as one operation.
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+FP64_OPS_PER_S = 34e12
+
+
+def bound_ms(nbytes, ops, ops_per_s):
+    """The least time for the work: the larger of its bytes (each input
+    read once, each output written once) over the memory rate and its
+    operations over the peak rate of their type."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def device_ms(torch, fn, reps=5, calls=20):
+    """ms per call on the device alone: ``calls`` calls captured in one CUDA
+    graph and replayed, CUDA events around each replay, the median over
+    ``reps`` replays after a warm-up one.  Unlike ``cuda_ms`` it leaves out
+    the host's work per call (the wrapper's checks and allocations and the
+    ``ctypes`` call), which is larger than a small kernel."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    times = []
+    for _ in range(reps + 1):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times[1:])
+
+
 def check_ewma(torch):
     """K1 against the plain conv1d on the card."""
-    from volt_tpu_torch.ops.ewma import _ewma_conv, ewma
+    from volt_tpu_torch.ops.ewma import _ewma_conv, _pad_left, ewma, \
+        ewma_filter_cuda, ewma_weights
 
     g = torch.Generator(device="cuda").manual_seed(0)
     worst = 0.0
@@ -117,93 +187,157 @@ def check_ewma(torch):
     y = 4.6 + 0.01 * torch.cumsum(
         torch.randn(64, 999, device="cuda", generator=g), dim=-1)
     ms = cuda_ms(torch, lambda: ewma(y, 300))
+    dev_ms = device_ms(torch, lambda: ewma_filter_cuda(y, 300))
     plain_ms = cuda_ms(torch, lambda: _ewma_conv(y, 300))
-    print(f"   K1 (64, 999) k=300: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    # the library's convolution alone, on the input already padded
+    padded = _pad_left(y, 300).reshape(64, 1, -1).contiguous()
+    taps = ewma_weights(300, torch.float32, y.device).reshape(1, 1, 300)
+
+    def conv():
+        return torch.nn.functional.conv1d(padded, taps)
+
+    library_ms, library_dev_ms = cuda_ms(torch, conv), device_ms(torch, conv)
+    print(f"   K1 (64, 999) k=300: kernel {ms:.4f} ms a call, {dev_ms:.4f} "
+          f"ms on the device; plain {plain_ms:.4f} ms a call; conv1d alone "
+          f"{library_ms:.4f} ms a call, {library_dev_ms:.4f} ms on the "
+          f"device")
+    # k multiply-adds per output
+    bound = bound_ms(4 * (64 * 999 + 300 + 64 * 1000), 2 * 300 * 64 * 1000,
+                     FP32_OPS_PER_S)
     return {"name": "ewma_filter", "route": "cuda",
             "source": "volt_tpu_torch/csrc/ewma_filter.cu",
             "replaces": "volt_tpu/ops/pallas/ewma_filter.py:63",
             "symbol": "volt_ewma_filter", "max_abs_err": worst, "ms": ms,
-            "plain_ms": plain_ms}
+            "device_ms": dev_ms, "plain_ms": plain_ms, **bound,
+            "library_ms": library_ms, "library_device_ms": library_dev_ms}
+
+
+# S1's check shapes: the main path, the reference API, the edges, ROADMAP
+# item 9's B=500, and n=16000 (16 tiles of the kernel's carry)
+KALMAN_SHAPES = [(64, 999), (1, 999), (3, 1), (5, 33), (500, 999), (16, 16000)]
+KALMAN_TIMED = [(64, 999), (1, 999), (500, 999), (16, 16000)]
+
+
+def kalman_inputs(torch, vt, b, n):
+    """The main path's stage-3 inputs for ``b`` SABR series of ``n``
+    returns: the vol integral, the residual of log prices from their EWMA
+    mean, and noise from 1e-4 to 1."""
+    from volt_tpu_torch.ops.ewma import ewma
+    from volt_tpu_torch.ops.volint import vol_integral
+
+    f, v_true = vt.data.sabr_paths(steps=n + 1, seed=0, n_paths=max(b, 2))
+    x = torch.arange(n, dtype=torch.float32, device="cuda") / 252.0
+    vol = torch.tensor(v_true[:b, 1:], device="cuda")
+    log_y = torch.log(torch.tensor(f[:b, 1:], device="cuda"))
+    v = vol_integral(x, vol) if n > 1 else vol * vol / 252.0
+    resid = log_y - ewma(log_y, 300)[..., :-1]
+    g = torch.Generator(device="cuda").manual_seed(1)
+    s2 = 10.0 ** (-4.0 + 4.0 * torch.rand(b, device="cuda", generator=g))
+    return v, s2, resid
+
+
+def kalman_run(torch, ttd, ins, how):
+    """Outputs ``(ll / n, mean, var)`` and the gradients of ``sum(ll / n)``
+    w.r.t. ``(v, sigma2, resid)``, six tensors: by S1 (``"kernel"``), or by
+    the plain loop in float32 (``"plain"``) or float64 (``"float64"``)."""
+    dtype = torch.float64 if how == "float64" else torch.float32
+    ins = [t.to(dtype).clone().requires_grad_() for t in ins]
+    if how == "kernel":
+        out = ttd._kalman(*ins)
+    else:
+        delta = torch.diff(ins[0], dim=-1,
+                           prepend=torch.zeros_like(ins[0][..., :1]))
+        out = ttd._kalman_plain(delta, ins[1], ins[2])
+    out[0].sum().backward()
+    return [o.detach() for o in out] + [t.grad for t in ins]
 
 
 def check_kalman(torch, vt):
     """S1 forward and adjoint against the plain loop on the card, on the
-    main path's stage-3 inputs: the SABR vol integral and the residual
-    of log prices from their EWMA mean."""
+    main path's stage-3 inputs at KALMAN_SHAPES, by the rule of
+    ``ops.tridiag.kalman_agreement``.  Returns the max abs errors against
+    the float32 plain loop, forward and backward."""
     from volt_tpu_torch.ops import tridiag as ttd
-    from volt_tpu_torch.ops.ewma import ewma
-    from volt_tpu_torch.ops.volint import vol_integral
 
+    fwd_err = bwd_err = 0.0
+    for b, n in KALMAN_SHAPES:
+        ins = kalman_inputs(torch, vt, b, n)
+        got, plain, f64 = (kalman_run(torch, ttd, ins, how)
+                           for how in ("kernel", "plain", "float64"))
+        for i, (name, used, kernel_f64, plain_f64, err) in enumerate(
+                ttd.kalman_agreement(got, plain, f64)):
+            print(f"   S1 ({b}, {n}) {name}: {used:.2f} of the tolerance; "
+                  f"from float64 the kernel {kernel_f64:.2f}, the float32 "
+                  f"plain loop {plain_f64:.2f} (same units); max abs err "
+                  f"against the float32 plain loop {err:.3e}")
+            if not used <= 1.0:
+                fail(f"S1 ({b}, {n}) {name} disagrees with its plain version")
+            if i < 3:
+                fwd_err = max(fwd_err, err)
+            else:
+                bwd_err = max(bwd_err, err)
+    return fwd_err, bwd_err
+
+
+def time_kalman(torch, vt):
+    """S1 forward (with the saved state) and backward timed at KALMAN_TIMED,
+    per call and on the device alone, and the plain loop forward and
+    backward at the main path's shape.  Returns the two kernels' records
+    without their errors."""
+    from volt_tpu_torch.ops import tridiag as ttd
+
+    times = {"forward": {}, "backward": {}}
+    for b, n in KALMAN_TIMED:
+        v, s2, resid = kalman_inputs(torch, vt, b, n)
+        delta = torch.diff(v, dim=-1, prepend=torch.zeros_like(v[..., :1]))
+        delta, s2c, resid = (t.contiguous() for t in (delta, s2, resid))
+        saved = ttd.kalman_forward_cuda(delta, s2c, resid, save=True)
+        ones, zeros = torch.ones_like(s2c), torch.zeros_like(s2c)
+        key = f"({b}, {n})"
+
+        def fwd():
+            return ttd.kalman_forward_cuda(delta, s2c, resid, save=True)
+
+        def bwd():
+            return ttd.kalman_backward_cuda(delta, s2c, resid, saved[3],
+                                            saved[4], ones, zeros, zeros)
+
+        for way, fn in (("forward", fwd), ("backward", bwd)):
+            times[way][key] = {"ms": cuda_ms(torch, fn),
+                               "device_ms": device_ms(torch, fn)}
+        print(f"   S1 {key}: forward {times['forward'][key]['ms']:.4f} ms a "
+              f"call, {times['forward'][key]['device_ms']:.4f} ms on the "
+              f"device; backward {times['backward'][key]['ms']:.4f} ms a "
+              f"call, {times['backward'][key]['device_ms']:.4f} ms on the "
+              f"device")
+        if (b, n) != (64, 999):
+            continue
+        with torch.no_grad():
+            plain_fwd_ms = cuda_ms(
+                torch, lambda: ttd._kalman_plain(delta, s2c, resid), calls=1)
+        ins = [t.clone().requires_grad_() for t in (delta, s2c, resid)]
+        ll_graph = ttd._kalman_plain(*ins)[0].sum()
+        plain_bwd_ms = cuda_ms(torch, lambda: torch.autograd.grad(
+            ll_graph, ins, retain_graph=True), calls=1)
+        print(f"   S1 {key}: plain forward {plain_fwd_ms:.2f} ms, plain "
+              f"backward {plain_bwd_ms:.2f} ms")
     b, n = 64, 999
-    f, v_true = vt.data.sabr_paths(steps=n + 1, seed=0, n_paths=b)
-    x = torch.arange(n, dtype=torch.float32, device="cuda") / 252.0
-    vol = torch.tensor(v_true[:, 1:], device="cuda")
-    log_y = torch.log(torch.tensor(f[:, 1:], device="cuda"))
-    v = vol_integral(x, vol)
-    resid = log_y - ewma(log_y, 300)[..., :-1]
-    g = torch.Generator(device="cuda").manual_seed(1)
-    s2 = 10.0 ** (-4.0 + 4.0 * torch.rand(b, device="cuda", generator=g))
-
-    def run(plain):
-        ins = [t.clone().requires_grad_() for t in (v, s2, resid)]
-        if plain:
-            delta = torch.diff(ins[0], dim=-1,
-                               prepend=torch.zeros_like(ins[0][..., :1]))
-            out = ttd._kalman_plain(delta, ins[1], ins[2])
-        else:
-            out = ttd._kalman(*ins)
-        out[0].sum().backward()
-        return [o.detach() for o in out], [t.grad for t in ins]
-
-    (ll, mean, var), grads = run(plain=False)
-    (ll_p, mean_p, var_p), grads_p = run(plain=True)
-    fwd_err = 0.0
-    for name, a, p in [("ll/n", ll, ll_p), ("mean", mean, mean_p),
-                       ("var", var, var_p)]:
-        err = (a - p).abs().max().item()
-        ok = torch.allclose(a, p, rtol=1e-5, atol=0.0)
-        print(f"   S1 forward {name}: max abs err {err:.3e}")
-        if not ok:
-            fail(f"S1 forward {name} disagrees with its plain version")
-        fwd_err = max(fwd_err, err)
-    bwd_err = 0.0
-    for name, a, p in zip(("v", "sigma2", "resid"), grads, grads_p):
-        err = (a - p).abs().max().item()
-        atol = 1e-6 * max(1.0, p.abs().max().item())
-        ok = torch.allclose(a, p, rtol=1e-4, atol=atol)
-        print(f"   S1 d/d{name}: max abs err {err:.3e} (atol {atol:.1e})")
-        if not ok:
-            fail(f"S1 gradient w.r.t. {name} disagrees with its plain version")
-        bwd_err = max(bwd_err, err)
-
-    # times of the kernels alone, and of the plain loop forward / backward
-    delta = torch.diff(v, dim=-1, prepend=torch.zeros_like(v[..., :1]))
-    delta, s2c, resid = delta.contiguous(), s2.contiguous(), resid.contiguous()
-    saved = ttd.kalman_forward_cuda(delta, s2c, resid, save=True)
-    ones, zeros = torch.ones_like(s2c), torch.zeros_like(s2c)
-    fwd_ms = cuda_ms(torch, lambda: ttd.kalman_forward_cuda(
-        delta, s2c, resid, save=True))
-    bwd_ms = cuda_ms(torch, lambda: ttd.kalman_backward_cuda(
-        delta, s2c, resid, saved[3], saved[4], ones, zeros, zeros))
-    with torch.no_grad():
-        plain_fwd_ms = cuda_ms(
-            torch, lambda: ttd._kalman_plain(delta, s2c, resid), calls=1)
-    ins = [t.clone().requires_grad_() for t in (delta, s2c, resid)]
-    ll_graph = ttd._kalman_plain(*ins)[0].sum()
-    plain_bwd_ms = cuda_ms(torch, lambda: torch.autograd.grad(
-        ll_graph, ins, retain_graph=True), calls=1)
-    print(f"   S1 (64, 999): forward kernel {fwd_ms:.4f} ms, plain "
-          f"{plain_fwd_ms:.2f} ms; backward kernel {bwd_ms:.4f} ms, plain "
-          f"{plain_bwd_ms:.2f} ms")
-    common = {"route": "cuda", "source": "volt_tpu_torch/csrc/kalman.cu",
-              "replaces": "volt_tpu/ops/tridiag.py:166"}
-    return [
-        {"name": "kalman_forward", **common, "symbol": "volt_kalman_forward",
-         "max_abs_err": fwd_err, "ms": fwd_ms, "plain_ms": plain_fwd_ms},
-        {"name": "kalman_backward", **common,
-         "symbol": "volt_kalman_backward", "max_abs_err": bwd_err,
-         "ms": bwd_ms, "plain_ms": plain_bwd_ms},
-    ]
+    # bytes: forward reads delta, resid, s2 and writes ll, mean, var and the
+    # saved (m, P); backward reads delta, resid, m, P, s2 and three
+    # cotangents and writes d/d delta, d/d resid, d/d s2.  FP64 operations
+    # per step, counted from csrc/kalman.cu: about 40 forward, 50 backward.
+    bounds = {"forward": bound_ms(4 * (4 * b * n + 4 * b), 40 * b * n,
+                                  FP64_OPS_PER_S),
+              "backward": bound_ms(4 * (6 * b * n + 5 * b), 50 * b * n,
+                                   FP64_OPS_PER_S)}
+    plain = {"forward": plain_fwd_ms, "backward": plain_bwd_ms}
+    return [{"name": f"kalman_{way}", "route": "cuda",
+             "source": "volt_tpu_torch/csrc/kalman.cu",
+             "replaces": "volt_tpu/ops/tridiag.py:166",
+             "symbol": f"volt_kalman_{way}", **times[way]["(64, 999)"],
+             "plain_ms": plain[way], **bounds[way], "library_ms": None,
+             "library_device_ms": None, "by_shape": times[way]}
+            for way in ("forward", "backward")]
 
 
 def check_volt_cov(torch):
@@ -240,15 +374,19 @@ def check_volt_cov(torch):
     integral = vol_integral(x, 0.1 + 0.2 * torch.rand(
         64, 999, device="cuda", generator=g)).contiguous()
     ms = cuda_ms(torch, lambda: volt_covariance_cuda(integral))
+    dev_ms = device_ms(torch, lambda: volt_covariance_cuda(integral))
     plain_ms = cuda_ms(torch, lambda: min_index_covariance(integral))
-    gbs = 64 * 999 * 999 * 4 / (ms * 1e-3) / 1e9
-    print(f"   K2 (64, 999): kernel {ms:.4f} ms ({gbs:.0f} GB/s of stores), "
-          f"plain {plain_ms:.4f} ms")
+    gbs = 64 * 999 * 999 * 4 / (dev_ms * 1e-3) / 1e9
+    print(f"   K2 (64, 999): kernel {ms:.4f} ms a call, {dev_ms:.4f} ms on "
+          f"the device ({gbs:.0f} GB/s of stores); plain {plain_ms:.4f} ms")
+    # pure copies: the integral read, the (64, 999, 999) output written
+    bound = bound_ms(4 * (64 * 999 + 64 * 999 * 999), 0, FP32_OPS_PER_S)
     return {"name": "volt_covariance", "route": "cuda",
             "source": "volt_tpu_torch/csrc/volt_cov.cu",
             "replaces": "volt_tpu/ops/pallas/volt_cov.py:47",
             "symbol": "volt_covariance", "max_abs_err": worst, "ms": ms,
-            "plain_ms": plain_ms}
+            "device_ms": dev_ms, "plain_ms": plain_ms, **bound,
+            "library_ms": None, "library_device_ms": None}
 
 
 def check_gh_ell(torch):
@@ -298,25 +436,41 @@ def check_gh_ell(torch):
     cot = torch.randn(64, 999, device="cuda", generator=g)
     fwd_ms = cuda_ms(torch, lambda: tgh.gh_ell_forward_cuda(y, mu, s2))
     bwd_ms = cuda_ms(torch, lambda: tgh.gh_ell_backward_cuda(y, mu, s2, cot))
+    fwd_dev_ms = device_ms(torch, lambda: tgh.gh_ell_forward_cuda(y, mu, s2))
+    bwd_dev_ms = device_ms(torch, lambda: tgh.gh_ell_backward_cuda(y, mu, s2,
+                                                                   cot))
     with torch.no_grad():
         plain_fwd_ms = cuda_ms(torch, lambda: tgh._gh_ell_plain(y, mu, s2, 75))
     ins = [t.clone().requires_grad_() for t in (y, mu, s2)]
     out = tgh._gh_ell_plain(*ins, 75)
     plain_bwd_ms = cuda_ms(torch, lambda: torch.autograd.grad(
         out, ins, cot, retain_graph=True))
-    print(f"   K3 (64, 999): forward kernel {fwd_ms:.4f} ms, plain "
-          f"{plain_fwd_ms:.4f} ms; backward kernel {bwd_ms:.4f} ms, plain "
-          f"{plain_bwd_ms:.4f} ms")
-    common = {"route": "cuda", "source": "volt_tpu_torch/csrc/gh_ell.cu"}
+    print(f"   K3 (64, 999): forward kernel {fwd_ms:.4f} ms a call, "
+          f"{fwd_dev_ms:.4f} ms on the device, plain {plain_fwd_ms:.4f} ms; "
+          f"backward kernel {bwd_ms:.4f} ms a call, {bwd_dev_ms:.4f} ms on "
+          f"the device, plain {plain_bwd_ms:.4f} ms")
+    # forward reads y, mu, s2 and the 75 nodes and weights, writes the ELL;
+    # backward also reads the cotangent and writes three gradients.  FP32
+    # operations per node, counted from csrc/gh_ell.cu: 14 forward (an exp,
+    # a log and a division among them), 22 backward.
+    count, nodes = 64 * 999, 75
+    fwd_bound = bound_ms(4 * (4 * count + 2 * nodes), 14 * nodes * count,
+                         FP32_OPS_PER_S)
+    bwd_bound = bound_ms(4 * (7 * count + 2 * nodes), 22 * nodes * count,
+                         FP32_OPS_PER_S)
+    common = {"route": "cuda", "source": "volt_tpu_torch/csrc/gh_ell.cu",
+              "library_ms": None, "library_device_ms": None}
     return [
         {"name": "gh_ell_forward", **common,
          "replaces": "volt_tpu/ops/pallas/gh_ell.py:122",
          "symbol": "volt_gh_ell_forward", "max_abs_err": fwd_err,
-         "ms": fwd_ms, "plain_ms": plain_fwd_ms},
+         "ms": fwd_ms, "device_ms": fwd_dev_ms, "plain_ms": plain_fwd_ms,
+         **fwd_bound},
         {"name": "gh_ell_backward", **common,
          "replaces": "volt_tpu/ops/pallas/gh_ell.py:143",
          "symbol": "volt_gh_ell_backward", "max_abs_err": bwd_err,
-         "ms": bwd_ms, "plain_ms": plain_bwd_ms},
+         "ms": bwd_ms, "device_ms": bwd_dev_ms, "plain_ms": plain_bwd_ms,
+         **bwd_bound},
     ]
 
 
@@ -369,11 +523,14 @@ def run_main_path(torch, vt, native):
     t1 = time.perf_counter()
     paths, aux_s = fit_forecast_batch(g, x, ys, test_x, cfg_s)
     torch.cuda.synchronize()
-    print(f"   samples call: {time.perf_counter() - t1:.3f} s")
+    total_s = time.perf_counter() - t1
+    stages_s = {k: round(v, 4) for k, v in aux_s["stage_seconds"].items()}
+    print(f"   samples call: {total_s:.3f} s; stages (s) {stages_s}")
     if tuple(paths.shape) != (b, cfg_s.nsample, h) or \
             not torch.isfinite(paths).all() or not bool(aux_s["ok"].all()):
         fail("samples call: bad shape, non-finite paths or a failed asset")
-    return launches, total, stages
+    return launches, {"quantiles_s": total, "quantiles_stages": stages,
+                      "samples_s": total_s, "samples_stages": stages_s}
 
 
 def run_reference_api(torch, vt, native, dev="cuda", n=999, h=100,
@@ -397,6 +554,7 @@ def run_reference_api(torch, vt, native, dev="cuda", n=999, h=100,
     volt = vt.Volt(x, torch.log(prices), mean="ewma", k=300)
     state = volt.Train(**(train or {}))
     _sync(torch, dev)
+    train_launches = dict(native.launches)
     t1 = time.perf_counter()
     paths = volt.Forecast(test_x, nsample=nsample, generator=g)
     _sync(torch, dev)
@@ -443,8 +601,10 @@ def run_reference_api(torch, vt, native, dev="cuda", n=999, h=100,
     if not err <= 5e-4 or not torch.isfinite(slow).all():
         fail("rollouts_dense disagrees with the Markov rollout")
     launches = dict(native.launches)
-    print(f"   kernel launches in the phase: {launches}")
-    return launches, {"train_s": t1 - t0, "forecast_s": t2 - t1,
+    print(f"   kernel launches in Train(): {train_launches}; in the phase: "
+          f"{launches}")
+    return launches, {"train_launches": train_launches,
+                      "train_s": t1 - t0, "forecast_s": t2 - t1,
                       "mll_dense": dense, "mll_kalman": kalman,
                       "mll_dense_f64": dense64, "rollout_dense_err": err}
 
@@ -514,12 +674,17 @@ def check_small_agreement(torch, vt):
         fail("small input: fan differs between card and CPU")
 
 
-def main():
+def setup(package_root=None):
+    """Phases 1 and 2: the card, then the kernels built.  ``package_root``
+    is the tree whose ``volt_tpu_torch`` is imported (default: the one on
+    ``sys.path``, this file's when run from its checkout)."""
     t0 = phase("device")
     import torch
 
     if not torch.cuda.is_available():
         fail("no CUDA device (torch.cuda.is_available() is False)")
+    if package_root is not None:
+        sys.path.insert(0, str(Path(package_root).resolve()))
     try:
         import volt_tpu_torch as vt
         from volt_tpu_torch import native
@@ -533,7 +698,7 @@ def main():
     card = smi.stdout.strip()
     print(card)
     print(f"   torch {torch.__version__}, CUDA {torch.version.cuda}, "
-          f"{torch.cuda.get_device_name(0)}")
+          f"{torch.cuda.get_device_name(0)}; {Path(vt.__file__).parent}")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     done(t0)
@@ -542,14 +707,22 @@ def main():
     native.library()
     print(native.build_log().strip())
     done(t0)
+    return torch, vt, native, card
+
+
+def smoke():
+    torch, vt, native, card = setup()
 
     t0 = phase("kernels against their plain versions")
-    kernels = [check_ewma(torch), *check_kalman(torch, vt),
-               check_volt_cov(torch), *check_gh_ell(torch)]
+    k1 = check_ewma(torch)
+    fwd_err, bwd_err = check_kalman(torch, vt)
+    s1 = time_kalman(torch, vt)
+    s1[0]["max_abs_err"], s1[1]["max_abs_err"] = fwd_err, bwd_err
+    kernels = [k1, *s1, check_volt_cov(torch), *check_gh_ell(torch)]
     done(t0)
 
     t0 = phase("main path: fit_forecast_batch, B=64, n=999, defaults")
-    launches, total, stages = run_main_path(torch, vt, native)
+    launches, main_path = run_main_path(torch, vt, native)
     paths = {"ewma_filter": ("fit_forecast_batch", launches),
              "kalman_forward": ("fit_forecast_batch", launches),
              "kalman_backward": ("fit_forecast_batch", launches)}
@@ -563,6 +736,9 @@ def main():
         sym = next(k["symbol"] for k in kernels if k["name"] == name)
         if api_launches.get(sym, 0) < 1:
             fail(f"kernel {name} was not launched by the reference API")
+    for sym in ("volt_kalman_forward", "volt_kalman_backward"):
+        if api["train_launches"].get(sym, 0) < 1:
+            fail(f"{sym} was not launched by Volt().Train()")
     done(t0)
 
     t0 = phase("GPCV with the GH-75 term: B=64, n=999, Adam and NGVI")
@@ -575,7 +751,11 @@ def main():
     for k in kernels:
         path, counts = paths[k["name"]]
         k["path"] = path
-        k["launches"] = counts.get(k.pop("symbol"), 0)
+        sym = k.pop("symbol")
+        k["launches"] = counts.get(sym, 0)
+        k["launches_by_path"] = {
+            "fit_forecast_batch": launches.get(sym, 0),
+            "Volt().Train()": api["train_launches"].get(sym, 0)}
         if k["launches"] < 1:
             fail(f"kernel {k['name']} was not launched by its path ({path})")
 
@@ -583,13 +763,82 @@ def main():
     check_small_agreement(torch, vt)
     done(t0)
 
-    print(json.dumps({"card": card, "main_path_s": total,
-                      "stage_s": stages, "reference_api": api,
-                      "gpcv_gh": gh}))
+    print(json.dumps({"card": card, "main_path": main_path,
+                      "reference_api": api, "gpcv_gh": gh}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+
+
+# Phases that ``--phase`` runs alone, in any tree of the port: each takes
+# (torch, vt, native) and returns what it measured.
+PHASES = {
+    "kalman_times": lambda torch, vt, native: time_kalman(torch, vt),
+    "main_path": lambda torch, vt, native: run_main_path(torch, vt,
+                                                         native)[1],
+}
+PHASES_TAG = "chip_smoke phases: "
+
+
+def run_phases(names, package_root):
+    torch, vt, native, card = setup(package_root)
+    results = []
+    for name in names:
+        t0 = phase(name)
+        results.append({"phase": name,
+                        "result": PHASES[name](torch, vt, native)})
+        done(t0)
+    print(PHASES_TAG + json.dumps({"package": str(Path(vt.__file__).parent),
+                                   "card": card, "phases": results}),
+          flush=True)
+
+
+def run_ab(parent, names, out):
+    """The phases in fresh processes: parent, this tree, this tree, parent."""
+    here = Path(__file__).resolve()
+    results = []
+    for label, tree in (("parent", parent), ("change", here.parent),
+                        ("change", here.parent), ("parent", parent)):
+        tree = Path(tree).resolve()
+        proc = subprocess.run(
+            [sys.executable, str(here), "--package-root", str(tree),
+             *(f"--phase={name}" for name in names)],
+            cwd=tree, capture_output=True, text=True, timeout=900)
+        line = next((ln for ln in reversed(proc.stdout.splitlines())
+                     if ln.startswith(PHASES_TAG)), None)
+        if proc.returncode != 0 or line is None:
+            fail(f"the {label} run in {tree} exited {proc.returncode}:\n"
+                 f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+        results.append({"tree": label, **json.loads(line[len(PHASES_TAG):])})
+        print(json.dumps(results[-1]), flush=True)
+    out = Path(out)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(results, indent=1))
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--phase", action="append", choices=sorted(PHASES),
+                    help="run only this phase (repeatable); no checks of "
+                    "the other phases, no result lines")
+    ap.add_argument("--package-root", metavar="DIR",
+                    help="with --phase: the tree whose volt_tpu_torch runs")
+    ap.add_argument("--ab", metavar="PARENT_DIR",
+                    help="with --phase: run the phases in PARENT_DIR's tree "
+                    "and this one, parent, change, change, parent")
+    ap.add_argument("--out", default="chiprun_out/chip_ab.json",
+                    help="with --ab: where the four runs' JSON goes")
+    args = ap.parse_args()
+    if args.ab or args.package_root:
+        if not args.phase:
+            ap.error("--ab and --package-root need --phase")
+    if args.ab:
+        run_ab(args.ab, args.phase, args.out)
+    elif args.phase:
+        run_phases(args.phase, args.package_root)
+    else:
+        smoke()
 
 
 if __name__ == "__main__":

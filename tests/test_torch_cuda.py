@@ -52,9 +52,15 @@ def test_ewma_kernel_gradient_is_the_plain_transpose(cuda):
     torch.testing.assert_close(a.grad, b.grad, rtol=1e-5, atol=1e-6)
 
 
+# the main path, the reference API, the edges, B=500 and 16 tiles of carry
+@pytest.mark.parametrize("shape", [(64, 999), (1, 999), (3, 1), (5, 33),
+                                   (500, 999), (16, 16000)])
 @pytest.mark.parametrize("shared_v", [False, True])
-def test_kalman_kernel_matches_plain(cuda, shared_v):
-    b, n = 5, 300
+def test_kalman_kernel_matches_plain(cuda, shared_v, shape):
+    """S1 against the plain loop by ``ttd.kalman_agreement``: outputs rtol
+    1e-5 from a float64 run of it, gradients rtol 1e-4 and atol 1e-6 of
+    the largest from the float32 run."""
+    b, n = shape
     vol = 0.2 + 0.05 * torch.rand(1 if shared_v else b, n, device="cuda",
                                   generator=cuda)
     v = torch.cumsum(vol * vol / 252.0, dim=-1)
@@ -62,9 +68,11 @@ def test_kalman_kernel_matches_plain(cuda, shared_v):
     s2 = 10.0 ** (-4.0 + 3.0 * torch.rand(b, device="cuda", generator=cuda))
     resid = 0.05 * torch.randn(b, n, device="cuda", generator=cuda)
 
-    def run(kernel):
-        ins = [t.clone().requires_grad_() for t in (v, s2, resid)]
-        if kernel:
+    def run(how):
+        dtype = torch.float64 if how == "float64" else torch.float32
+        ins = [t.to(dtype).clone().requires_grad_() for t in (v, s2, resid)]
+        if how == "kernel":
+            before = native.launches["volt_kalman_backward"]
             ll, mean, var = ttd._kalman(*ins)
         else:
             delta = torch.diff(ins[0], dim=-1,
@@ -72,15 +80,14 @@ def test_kalman_kernel_matches_plain(cuda, shared_v):
             ll, mean, var = ttd._kalman_plain(
                 delta.expand(b, n), ins[1], ins[2])
         (ll.sum() + 0.5 * mean.sum() + 2.0 * var.sum()).backward()
+        if how == "kernel":
+            assert native.launches["volt_kalman_backward"] == before + 1
         return (ll, mean, var), [t.grad for t in ins]
 
-    outs, grads = run(True)
-    outs_p, grads_p = run(False)
-    for a, p in zip(outs, outs_p):
-        torch.testing.assert_close(a, p, rtol=1e-5, atol=0.0)
-    for a, p in zip(grads, grads_p):
-        torch.testing.assert_close(a, p, rtol=1e-4,
-                                   atol=1e-6 * max(1.0, p.abs().max().item()))
+    got, plain, f64 = ([*outs, *grads] for outs, grads in
+                       (run(how) for how in ("kernel", "plain", "float64")))
+    for name, used, *record in ttd.kalman_agreement(got, plain, f64):
+        assert used <= 1.0, (name, used, record)
 
 
 @pytest.mark.parametrize("shape", [(64, 999), (1, 5), (3, 257), (2, 4, 33),

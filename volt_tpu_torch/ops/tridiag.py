@@ -201,3 +201,42 @@ def brownian_noise_filter(v, sigma2, resid):
     observations (same model as :func:`brownian_noise_mll_kalman`)."""
     _, mean, var = _kalman(v, sigma2, resid)
     return mean, var
+
+
+def tolerance_used(got, want, rtol, atol):
+    """``max |got - want| / (rtol |want| + atol)`` in float64, 0 where the
+    two are equal: the share of the tolerance used (1.0 is its edge)."""
+    got, want = got.double(), want.double()
+    err = (got - want).abs()
+    return torch.where(err == 0, 0.0, err / (rtol * want.abs() + atol)) \
+        .max().item()
+
+
+KALMAN_CHECKED = ("ll/n", "mean", "var", "d/dv", "d/dsigma2", "d/dresid")
+
+
+def kalman_agreement(got, plain, f64):
+    """Kernel S1 held to its plain version, the rule of the card checks.
+
+    Each argument is the six tensors ``(ll / n, mean, var, d/dv,
+    d/dsigma2, d/dresid)`` of one run: S1's, the float32 plain loop's and
+    a float64 run of the plain loop.  The three outputs are held to the
+    float64 loop at rtol 1e-5: S1 computes in float64 inside, and on long
+    rows the float32 loop's own rounding passes that tolerance.  The
+    gradients are held to the float32 loop at rtol 1e-4 and atol 1e-6 of
+    its largest magnitude (at least 1e-6), since d/dv differences
+    neighbouring d/d(delta).  Returns one row per tensor, ``(name, used,
+    kernel_f64, plain_f64, max_abs_err)``: the share of its tolerance used
+    (it passes at most 1.0), S1's and the float32 loop's distance from the
+    float64 loop in the same units, and S1's max abs error against the
+    float32 loop."""
+    rows = []
+    for i, (name, a, p, w) in enumerate(zip(KALMAN_CHECKED, got, plain,
+                                            f64)):
+        rtol, atol = (1e-5, 0.0) if i < 3 else \
+            (1e-4, 1e-6 * max(1.0, p.abs().max().item()))
+        kernel_f64 = tolerance_used(a, w, rtol, atol)
+        used = kernel_f64 if i < 3 else tolerance_used(a, p, rtol, atol)
+        rows.append((name, used, kernel_f64, tolerance_used(p, w, rtol, atol),
+                     (a - p).abs().max().item()))
+    return rows
