@@ -33,15 +33,51 @@ def cuda():
 
 @pytest.mark.parametrize("shape,k", [((3, 50), 1), ((3, 50), 64),
                                      ((3, 50), 2000), ((2, 3, 37), 7),
-                                     ((70000, 3), 2)])
+                                     ((70000, 3), 2), ((500, 999), 300),
+                                     ((500, 999), 25), ((16, 2100), 300)])
 def test_ewma_kernel_matches_plain(cuda, shape, k):
+    """K1 against a float64 run of the plain filter at 1e-6 max|y| (the
+    kernel runs the recurrence in float64), and against the float32 plain
+    filter at 1e-5 max|y|."""
     y = 4.0 + torch.randn(*shape, device="cuda", generator=cuda)
     before = native.launches["volt_ewma_filter"]
     got = tew.ewma(y, k)
     assert native.launches["volt_ewma_filter"] == before + 1
-    want = tew._ewma_conv(y, k)
-    torch.testing.assert_close(got, want, rtol=0.0,
-                               atol=1e-5 * y.abs().max().item())
+    scale = y.abs().max().item()
+    torch.testing.assert_close(got.double(), tew._ewma_conv(y.double(), k),
+                               rtol=0.0, atol=1e-6 * scale)
+    torch.testing.assert_close(got, tew._ewma_conv(y, k), rtol=0.0,
+                               atol=1e-5 * scale)
+
+
+def test_ewma_kernel_nan_stays_in_its_row(cuda):
+    """A NaN runs from its step to the end of its row (the recurrence
+    carries it); every other row equals the plain filter."""
+    y = 4.0 + torch.randn(64, 999, device="cuda", generator=cuda)
+    y[5, 100] = float("nan")
+    got, want = tew.ewma(y, 300), tew._ewma_conv(y, 300)
+    others = torch.arange(64, device="cuda") != 5
+    torch.testing.assert_close(got[others], want[others], rtol=0.0,
+                               atol=1e-5 * y[others].abs().max().item())
+    torch.testing.assert_close(got[5, :101], want[5, :101], rtol=0.0,
+                               atol=1e-5 * y[5, :100].abs().max().item())
+    assert bool(torch.isnan(got[5, 101:]).all())
+
+
+def test_ewma_kernel_no_grad_call_launches_once(cuda):
+    """Without a gradient the wrapper skips the autograd function and
+    launches K1 once, as with one."""
+    y = torch.randn(4, 40, device="cuda", generator=cuda, requires_grad=True)
+    for ctx, wants_grad in ((torch.no_grad(), False),
+                            (torch.enable_grad(), True)):
+        before = native.launches["volt_ewma_filter"]
+        with ctx:
+            out = tew.ewma(y, 9)
+        assert native.launches["volt_ewma_filter"] == before + 1
+        assert out.requires_grad == wants_grad
+    before = native.launches["volt_ewma_filter"]
+    tew.ewma(y.detach(), 9)
+    assert native.launches["volt_ewma_filter"] == before + 1
 
 
 def test_ewma_kernel_gradient_is_the_plain_transpose(cuda):
@@ -125,12 +161,15 @@ def _gh_inputs(gen, shape):
     return y, mu, s2
 
 
-@pytest.mark.parametrize("shape", [(64, 999), (3, 37)])
+@pytest.mark.parametrize("shape", [(64, 999), (500, 999), (3, 37)])
 def test_gh_ell_kernels_match_plain(cuda, shape):
+    """K3's fused path: one forward launch that keeps the gradient's node
+    sums, one elementwise backward launch."""
     ins = _gh_inputs(cuda, shape)
     a = [t.clone().requires_grad_() for t in ins]
     b = [t.clone().requires_grad_() for t in ins]
-    before = native.launches["volt_gh_ell_backward"]
+    before = {s: native.launches[s] for s in ("volt_gh_ell_forward",
+                                              "volt_gh_ell_backward")}
     got = tgh.gh_expected_log_prob(*a)
     want = tgh._gh_ell_plain(*b, 75)
     # atol 1e-6: where the node sum cancels to near zero, only the float32
@@ -139,12 +178,35 @@ def test_gh_ell_kernels_match_plain(cuda, shape):
     g = torch.randn(*shape, device="cuda", generator=cuda)
     (got * g).sum().backward()
     (want * g).sum().backward()
-    assert native.launches["volt_gh_ell_backward"] == before + 1
+    for sym, n in before.items():
+        assert native.launches[sym] == n + 1, sym
     # d/dvar also gets the float32 resolution of its cancelling node sum
     extra = (0.0, 0.0, tgh.var_grad_resolution(*ins, g))
     for p, q, e in zip(a, b, extra):
         tol = 1e-4 * q.grad.abs() + 1e-6 * q.grad.abs().max() + e
         assert bool(((p.grad - q.grad).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("shape", [(64, 999), (500, 999), (3, 37)])
+def test_gh_ell_kernel_without_grad(cuda, shape):
+    """Without a gradient K3 computes E alone: one forward launch, equal to
+    the forward that keeps the sums, and no backward."""
+    ins = _gh_inputs(cuda, shape)
+    fwd, bwd = (native.launches[s] for s in ("volt_gh_ell_forward",
+                                              "volt_gh_ell_backward"))
+    with torch.no_grad():
+        got = tgh.gh_expected_log_prob(*ins)
+    assert native.launches["volt_gh_ell_forward"] == fwd + 1
+    assert native.launches["volt_gh_ell_backward"] == bwd
+    torch.testing.assert_close(got, tgh._gh_ell_plain(*ins, 75), rtol=1e-5,
+                               atol=1e-6)
+    out, saved = tgh.gh_ell_forward_cuda(*ins, save=True)
+    assert torch.equal(got, out)
+    # the backward without the saved sums runs the forward for them
+    g = torch.randn(*shape, device="cuda", generator=cuda)
+    for p, q in zip(tgh.gh_ell_backward_cuda(*ins, g),
+                    tgh.gh_ell_backward_cuda(*ins, g, saved=saved)):
+        assert torch.equal(p, q)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):

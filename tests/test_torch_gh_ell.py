@@ -6,7 +6,15 @@ Monte-Carlo predicted scale, and the GPCV ELBO trained on the GH term.
 Tolerances: values rtol 1e-5 with atol 1e-6 (where the node sum cancels to
 near zero only the float32 rounding of its O(1) terms is left);
 gradients rtol 1e-4 with atol 1e-6 of the largest, d/dvar plus the float32
-resolution of its node sum (``var_grad_resolution``)."""
+resolution of its node sum (``var_grad_resolution``).
+
+Kernel K3's node arithmetic (``csrc/gh_ell.cu``: no log, one reciprocal
+per node, the gradient's three node sums kept by the forward, the node
+loop split over lanes combined by a butterfly) is checked here too, by a
+float32 emulation with the split as a parameter, against the Pallas kernel
+and its ``jax.vjp`` at the same tolerances."""
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -24,6 +32,7 @@ from volt_tpu.train import scaled_returns as j_scaled_returns
 from volt_tpu_torch.convert import load_jax_params
 from volt_tpu_torch.likelihoods import VolatilityGaussianLikelihood
 from volt_tpu_torch.models import GPCVModel
+from volt_tpu_torch.ops import gh_ell as tgh
 from volt_tpu_torch.ops.gh_ell import (_gh_ell_plain, gh_expected_log_prob,
                                        var_grad_resolution)
 
@@ -42,25 +51,95 @@ def _inputs(seed, shape, wide):
     return y, mu, s2
 
 
-@pytest.mark.parametrize("shape,wide", [((3, 37), True), ((2, 90), False),
-                                        ((130,), True)])
-def test_gh_plain_matches_pallas_values_and_gradients(shape, wide):
+INPUT_CASES = [((3, 37), True), ((2, 90), False), ((130,), True)]
+
+
+@functools.cache
+def _pallas(shape, wide):
+    """Inputs, cotangent, and the Pallas kernel's value and gradients
+    (computed once per case; callers must not modify them)."""
     y, mu, s2 = _inputs(0, shape, wide)
     cot = np.random.default_rng(1).standard_normal(shape).astype(np.float32)
     want, vjp = jax.vjp(lambda a, b, c: j_gh(a, b, c, interpret=True),
                         j32(y), j32(mu), j32(s2))
-    want_grads = vjp(j32(cot))
+    return (y, mu, s2), cot, want, vjp(j32(cot))
 
+
+def _check_grads(got, want, y, mu, s2, cot):
+    extra = (0.0, 0.0, var_grad_resolution(t32(y), t32(mu), t32(s2),
+                                           t32(cot)).numpy())
+    for p, q, e in zip(got, want, extra):
+        q = np.asarray(q)
+        tol = 1e-4 * np.abs(q) + 1e-6 * np.abs(q).max() + e
+        assert np.all(np.abs(p.numpy() - q) <= tol)
+
+
+@pytest.mark.parametrize("shape,wide", INPUT_CASES)
+def test_gh_plain_matches_pallas_values_and_gradients(shape, wide):
+    (y, mu, s2), cot, want, want_grads = _pallas(shape, wide)
     ins = [t32(a).requires_grad_() for a in (y, mu, s2)]
     got = gh_expected_log_prob(*ins)
     close(got, want, 1e-5, 1e-6)
     (got * t32(cot)).sum().backward()
-    extra = (0.0, 0.0, var_grad_resolution(t32(y), t32(mu), t32(s2),
-                                           t32(cot)).numpy())
-    for p, q, e in zip(ins, want_grads, extra):
-        q = np.asarray(q)
-        tol = 1e-4 * np.abs(q) + 1e-6 * np.abs(q).max() + e
-        assert np.all(np.abs(p.grad.numpy() - q) <= tol)
+    _check_grads([t.grad for t in ins], want_grads, y, mu, s2, cot)
+
+
+# ---------------------------------------------------------------------------
+# Kernel K3's fused node pass, emulated
+# ---------------------------------------------------------------------------
+
+_LOG_SCALE_MIN = float(np.float32(np.log(np.float64(np.float32(1e-3)))))
+
+
+def fused_node_pass(y, mu, s2, split, num_locs=75):
+    """``(E, node sums (3, ...))`` as kernel K3's forward with ``save``
+    computes them in float32: lane ``j`` of a datum's ``split`` lanes sums
+    the nodes ``j, j + split, ...`` in order, and a butterfly over the
+    lanes (``__shfl_xor_sync``) combines the lanes' sums."""
+    x, w = (t.reshape(-1, *(1,) * y.dim())
+            for t in tgh._nodes(num_locs, "cpu").chunk(2))
+    sd = torch.sqrt(2.0 * s2)
+    f = sd * x + mu
+    fc = torch.where(f >= 80.0, 80.0, f)
+    ef = torch.exp(fc)
+    clamped = ef <= 1e-3
+    inv = 1.0 / torch.where(clamped, torch.tensor(1e-3), ef)
+    r = y * inv
+    lp = -0.5 * r * r - torch.where(clamped, _LOG_SCALE_MIN, fc) - \
+        tgh._HALF_LOG_2PI
+    live = (ef > 1e-3) & (f < 80.0)
+    dlp = (r * r - 1.0) * live
+    sums = []
+    for term in (w * lp, w * (-r * inv), w * dlp, (w * x) * dlp):
+        lanes = []
+        for j in range(split):
+            acc = torch.zeros_like(y)
+            for k in range(j, num_locs, split):
+                acc = acc + term[k]
+            lanes.append(acc)
+        off = split // 2
+        while off:
+            lanes = [lanes[j] + lanes[j ^ off] for j in range(split)]
+            off //= 2
+        sums.append(lanes[0])
+    return sums[0], torch.stack(sums[1:])
+
+
+def fused_backward(s2, g, saved):
+    """K3's elementwise backward: ``g`` times the node sums, and
+    ``/ max(sd, 1e-20)`` for d/dvar."""
+    inv_sd = 1.0 / torch.clamp(torch.sqrt(2.0 * s2), min=1e-20)
+    return g * saved[0], g * saved[1], g * saved[2] * inv_sd
+
+
+@pytest.mark.parametrize("split", [1, 2, 4, 8])
+@pytest.mark.parametrize("shape,wide", INPUT_CASES)
+def test_fused_node_pass_matches_pallas(shape, wide, split):
+    (y, mu, s2), cot, want, want_grads = _pallas(shape, wide)
+    out, saved = fused_node_pass(t32(y), t32(mu), t32(s2), split)
+    close(out, want, 1e-5, 1e-6)
+    _check_grads(fused_backward(t32(s2), t32(cot), saved), want_grads,
+                 y, mu, s2, cot)
 
 
 def test_gh_overflow_region_finite():

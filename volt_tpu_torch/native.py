@@ -9,7 +9,11 @@ needs the library.
 
 :func:`launch` is the one place a kernel is launched: it passes tensor
 pointers and PyTorch's current stream, raises on the ``cudaError_t`` the C
-entry returns, and counts the launch in :data:`launches`.
+entry returns, and counts the launch in :data:`launches`.  A launch is on
+the host's path of every kernel call, so it does little: each C entry is
+resolved once, the device is switched only when the tensors' device is not
+the current one, and the current stream is still read on every call (a
+CUDA graph captures on a stream of its own).
 """
 
 from __future__ import annotations
@@ -36,16 +40,20 @@ _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_D = ctypes.c_double
 # C entry points: argument types, the trailing stream included.
 _SIGNATURES = {
-    "volt_ewma_filter": (_P, _P, _P, _I, _I, _I, _P),
+    "volt_ewma_filter": (_P, _P, _I, _I, _I, _D, _D, _D, _P),
     "volt_kalman_forward": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
     "volt_kalman_backward": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                              _I, _I, _P),
     "volt_covariance": (_P, _P, _I, _I, _P),
-    "volt_gh_ell_forward": (_P, _P, _P, _P, _P, _I, _I, _P),
-    "volt_gh_ell_backward": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
+    "volt_gh_ell_forward": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "volt_gh_ell_backward": (_P, _P, _P, _P, _P, _P, _I, _P),
 }
+
+# What :func:`launch` passes as it is; everything else is a tensor.
+_SCALARS = frozenset((int, float, type(None)))
 
 # Launches per C entry point since the last ``launches.clear()``.
 launches: collections.Counter = collections.Counter()
@@ -93,6 +101,13 @@ def _run_all(cmds):
 
 
 @functools.cache
+def _entries() -> dict:
+    """The C entry points of :func:`library`, by name."""
+    lib = library()
+    return {name: getattr(lib, name) for name in _SIGNATURES}
+
+
+@functools.cache
 def library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library."""
     so = _library_path()
@@ -122,32 +137,46 @@ def library() -> ctypes.CDLL:
 def check_tensors(name: str, *tensors):
     """Raise unless every tensor is a contiguous float32 CUDA tensor on
     one device — the only layout the kernels take."""
-    device = tensors[0].device
+    index = tensors[0].get_device()
     for t in tensors:
-        if t.device.type != "cuda" or t.device != device:
-            raise ValueError(f"{name}: expected CUDA tensors on one device, "
-                             f"got {t.device} (and {device})")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: expected float32, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: expected contiguous tensors")
-        if t.numel() >= 2**31:
-            raise ValueError(f"{name}: {t.numel()} elements exceed the "
-                             f"kernels' 32-bit sizes")
+        if not (t.is_cuda and t.get_device() == index
+                and t.dtype is torch.float32 and t.is_contiguous()
+                and t.numel() < 2**31):
+            _refuse(name, t, tensors[0])
+
+
+def _refuse(name, t, first):
+    if t.device.type != "cuda" or t.device != first.device:
+        raise ValueError(f"{name}: expected CUDA tensors on one device, "
+                         f"got {t.device} (and {first.device})")
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name}: expected float32, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected contiguous tensors")
+    raise ValueError(f"{name}: {t.numel()} elements exceed the kernels' "
+                     f"32-bit sizes")
 
 
 def launch(symbol: str, *args, device: torch.device):
     """Call the C entry ``symbol`` on ``device``'s current stream.
 
-    Tensors are passed as pointers, ``None`` as a null pointer, ints as
-    ``int``.  Raises ``RuntimeError`` if the launch was refused.
+    Tensors are passed as pointers, ``None`` as a null pointer, ints and
+    floats as the entry's ``int`` and ``double``.  Raises ``RuntimeError``
+    if the launch was refused.
     """
-    lib = library()
-    cargs = [a.data_ptr() if torch.is_tensor(a) else a for a in args]
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(lib, symbol)(*cargs, stream)
+    fn = _entries()[symbol]
+    # by type, not isinstance: a tensor's isinstance check goes through its
+    # metaclass, and costs more than the rest of the launch's Python
+    cargs = [a if type(a) in _SCALARS else a.data_ptr() for a in args]
+    index = device.index
+    # the current stream's handle, as PyTorch's own compiled kernels read
+    # it (torch._inductor's get_raw_stream), without a Stream object
+    if index == torch.cuda.current_device():
+        rc = fn(*cargs, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            rc = fn(*cargs, torch._C._cuda_getCurrentRawStream(index))
     if rc != 0:
-        msg = lib.volt_cuda_error_string(rc).decode()
+        msg = library().volt_cuda_error_string(rc).decode()
         raise RuntimeError(f"{symbol}: CUDA error {rc} ({msg})")
     launches[symbol] += 1

@@ -7,7 +7,9 @@ is the weighted mean of ``padded[j:j+k]``.
 
 :func:`ewma` runs kernel K1 (``csrc/ewma_filter.cu``) on CUDA tensors, for
 every ``k``, and its plain version (a ``conv1d`` over the padded series)
-on CPU tensors.  The rolling forms serve the rollout.
+on CPU tensors.  The taps are geometric, so K1 computes the filter as the
+equivalent first-order recurrence on the output (``_recurrence``).  The
+rolling forms serve the rollout.
 """
 
 from __future__ import annotations
@@ -50,6 +52,16 @@ def ewma_weights(k: int, dtype=torch.float32, device=None):
     return torch.tensor(_ewma_weights_np(k), dtype=dtype, device=device)
 
 
+@lru_cache(maxsize=64)
+def _recurrence(k: int):
+    """``(beta, c, beta**k)`` in float64: the k-tap filter is
+    ``out[0] = y[0]``, ``out[i+1] = beta out[i] + c (y[i] - beta**k
+    y[max(i - k, 0)])``, since its taps are ``c beta**(k-1-i)``."""
+    beta = 1.0 - 2.0 / (k + 1)
+    beta_k = beta ** k
+    return beta, (1.0 - beta) / (1.0 - beta_k), beta_k
+
+
 def _pad_left(y, k: int):
     """Left-pad the series with ``k`` copies of its first value."""
     return torch.cat([y[..., :1].expand(*y.shape[:-1], k), y], dim=-1)
@@ -70,9 +82,8 @@ def ewma_filter_cuda(y2, k: int):
         raise ValueError(f"ewma_filter: expected (rows, T) with rows, T >= 1 "
                          f"and k >= 1, got {tuple(y2.shape)}, k={k}")
     rows, t = y2.shape
-    taps = ewma_weights(k, torch.float32, y2.device)
-    out = torch.empty(rows, t + 1, dtype=torch.float32, device=y2.device)
-    native.launch("volt_ewma_filter", y2, taps, out, rows, t, k,
+    out = y2.new_empty((rows, t + 1))
+    native.launch("volt_ewma_filter", y2, out, rows, t, k, *_recurrence(k),
                   device=y2.device)
     return out
 
@@ -100,11 +111,16 @@ def ewma(y, k: int):
     """Truncated EWMA filter, ``(..., T) -> (..., T + 1)``."""
     if k < 1:
         raise ValueError(f"ewma needs k >= 1, got {k}")
-    if y.device.type == "cpu":
+    if y.is_cpu:
         return _ewma_conv(y, k)
     t = y.shape[-1]
-    out = _EWMAFilter.apply(y.reshape(-1, t).contiguous(), k)
-    return out.reshape(*y.shape[:-1], t + 1)
+    flat = y.dim() == 2  # the main path's (B, T): no reshape either way
+    y2 = (y if flat else y.reshape(-1, t)).contiguous()
+    if y.requires_grad and torch.is_grad_enabled():
+        out = _EWMAFilter.apply(y2, k)
+    else:
+        out = ewma_filter_cuda(y2, k)
+    return out if flat else out.reshape(*y.shape[:-1], t + 1)
 
 
 # ---------------------------------------------------------------------------

@@ -5,8 +5,10 @@ of :mod:`volt_tpu.ops.pallas.gh_ell`).
 ``scale(f) = max(exp(min(f, 80)), 1e-3)``, by ``num_locs``-node
 Gauss–Hermite quadrature — the GPCV ELBO's reference term
 (``method="quadrature"``).  On CUDA tensors kernel K3 (``csrc/gh_ell.cu``)
-computes it, and its analytic gradient as the backward; on CPU tensors the
-plain version (the node sum of :func:`.quadrature.expected_value`) does.
+computes it; when a gradient is wanted, the same node pass also keeps the
+node sums of its analytic gradient, and the backward is an elementwise
+kernel over them.  On CPU tensors the plain version (the node sum of
+:func:`.quadrature.expected_value`) does.
 """
 
 from __future__ import annotations
@@ -25,9 +27,13 @@ __all__ = ["exp_scale", "exp_log_prob", "gh_expected_log_prob",
            "var_grad_resolution"]
 
 _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
-# dynamic shared memory holds 2 * num_locs floats, within the 48 KB a
+# dynamic shared memory holds 3 * num_locs floats, within the 48 KB a
 # launch gets without an opt-in
-_MAX_LOCS = 6144
+_MAX_LOCS = 4096
+# threads the forward aims for: about one full load of 132 SMs at 2048
+# threads each (its split of a datum's nodes over up to 8 lanes fills the
+# card at small shapes)
+_THREADS = 2**18
 
 
 def exp_scale(f):
@@ -91,50 +97,75 @@ def _check(name, num_locs, *tensors):
                          f"got {num_locs}")
 
 
-def gh_ell_forward_cuda(y, mu, s2, num_locs: int = DEFAULT_NUM_LOCS):
+def _split_log2(count: int) -> int:
+    """log2 of the lanes that share a datum's node loop: the least of 1,
+    2, 4 and 8 that gives ``_THREADS`` threads."""
+    s = 0
+    while s < 3 and count << s < _THREADS:
+        s += 1
+    return s
+
+
+def gh_ell_forward_cuda(y, mu, s2, num_locs: int = DEFAULT_NUM_LOCS,
+                        save: bool = False):
     """Kernel K3 forward, elementwise over contiguous float32 tensors of
-    one shape."""
+    one shape.  With ``save`` it returns ``(out, saved)``: ``saved``
+    ``(3, *shape)`` holds the node sums of the gradient, from the same
+    pass, for :func:`gh_ell_backward_cuda`."""
     _check("gh_ell_forward", num_locs, y, mu, s2)
     out = torch.empty_like(y)
+    saved = y.new_empty((3, *y.shape)) if save else None
     if y.numel():
         native.launch("volt_gh_ell_forward", y, mu, s2,
-                      _nodes(num_locs, y.device), out, y.numel(), num_locs,
-                      device=y.device)
-    return out
+                      _nodes(num_locs, y.device), out, saved, y.numel(),
+                      num_locs, _split_log2(y.numel()), device=y.device)
+    return (out, saved) if save else out
 
 
-def gh_ell_backward_cuda(y, mu, s2, g, num_locs: int = DEFAULT_NUM_LOCS):
-    """Kernel K3 backward: ``(dy, dmu, ds2)`` for the cotangent ``g``."""
+def gh_ell_backward_cuda(y, mu, s2, g, num_locs: int = DEFAULT_NUM_LOCS,
+                         saved=None):
+    """Kernel K3 backward: ``(dy, dmu, ds2)`` for the cotangent ``g``, from
+    the node sums ``saved`` by the forward with ``save`` (run here when
+    ``saved`` is not given)."""
     _check("gh_ell_backward", num_locs, y, mu, s2, g)
+    if saved is None:
+        saved = gh_ell_forward_cuda(y, mu, s2, num_locs, save=True)[1]
+    native.check_tensors("gh_ell_backward", saved, y)
+    if saved.shape != (3, *y.shape):
+        raise ValueError(f"gh_ell_backward: saved sums of shape "
+                         f"{tuple(saved.shape)} for data {tuple(y.shape)}")
     dy, dmu, ds2 = (torch.empty_like(y) for _ in range(3))
     if y.numel():
-        native.launch("volt_gh_ell_backward", y, mu, s2, g,
-                      _nodes(num_locs, y.device), dy, dmu, ds2, y.numel(),
-                      num_locs, device=y.device)
+        native.launch("volt_gh_ell_backward", s2, g, saved, dy, dmu, ds2,
+                      y.numel(), device=y.device)
     return dy, dmu, ds2
 
 
 class _GHELL(torch.autograd.Function):
-    """K3 forward with the analytic backward kernel."""
+    """K3 forward, keeping the gradient's node sums, with the elementwise
+    backward kernel."""
 
     @staticmethod
     def forward(ctx, y, mu, s2, num_locs):
+        out, saved = gh_ell_forward_cuda(y, mu, s2, num_locs, save=True)
         ctx.num_locs = num_locs
-        ctx.save_for_backward(y, mu, s2)
-        return gh_ell_forward_cuda(y, mu, s2, num_locs)
+        ctx.save_for_backward(y, mu, s2, saved)
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        y, mu, s2 = ctx.saved_tensors
+        y, mu, s2, saved = ctx.saved_tensors
         return (*gh_ell_backward_cuda(y, mu, s2, g.contiguous(),
-                                      ctx.num_locs), None)
+                                      ctx.num_locs, saved), None)
 
 
 def gh_expected_log_prob(y, mean, var, num_locs: int = DEFAULT_NUM_LOCS):
     """GH expected log-likelihood; ``y``, ``mean`` and ``var`` broadcast
     together, and gradients reach all three."""
     y, mean, var = torch.broadcast_tensors(y, mean, var)
-    if y.device.type == "cpu":
+    if y.is_cpu:
         return _gh_ell_plain(y, mean, var, num_locs)
-    return _GHELL.apply(y.contiguous(), mean.contiguous(), var.contiguous(),
-                        num_locs)
+    ins = (y.contiguous(), mean.contiguous(), var.contiguous())
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ins):
+        return _GHELL.apply(*ins, num_locs)
+    return gh_ell_forward_cuda(*ins, num_locs)
