@@ -65,14 +65,43 @@ Phases, each printed with its time; any failure exits non-zero:
    in: at x = 0 the BM prior's variance is zero, and d/dvar of the GH term
    there is below float32 resolution, which NGVI's curvature step takes
    as it is); K3 forward and backward launched;
-7. agreement on a small input: the card's run equals the CPU run (the
+7. ``gpcv_full``: ``fit_forecast_batch`` with ``gpcv_q="full"`` (the dense
+   variational root, ``(64, 999, 999)``) on phase 4's series, quantiles,
+   the other defaults.  Checks: every ``ok``, a finite fan non-decreasing
+   across levels, the vol band; prints the stage seconds and the median
+   relative difference of its vol from phase 4's tridiagonal fit;
+8. ``gpcv_cv``: ``learn_gpcv(param="cv")`` on the same series, 30 NGVI
+   iterations, then 300 Adam steps.  Checks: every series finite, the vol
+   band; prints the difference from the exp fit of each;
+9. ``gpcv_sparse``: ``learn_gpcv_sparse`` on one SABR series of n=16000
+   with 256 inducing points and its default 1000 Adam steps.  Checks: a
+   finite scale, the vol band, the returned model's
+   ``predicted_scale()`` equal to the returned scale (rtol 1e-6);
+10. ``option_pricing``: ``price_options_batch`` at the BASELINE
+   configuration: 500 SABR series, n=999, 10000 paths of H=100 steps
+   (``output="samples"``), 21 strikes from 0.8x to 1.2x the median last
+   price, expiries at steps (4, 20, 62, 99), the realised prices from each
+   series' own continuation.  Checks: values finite, >= 0 and not rising
+   with the strike (rel 1e-5); finite forwards; percentiles in [0, 1];
+   every ``ok``; K1 and S1 launched.  Prints the stage seconds, the
+   payoff grid's, rollout path-steps per second, the peak memory,
+   ``calibration(percentiles)`` and the mean CRPS over 64 assets;
+11. agreement on a small input: the card's run equals the CPU run (the
    plain versions, which the repository's tests hold against the JAX
-   package) within the pipeline parity tolerances.
+   package): the main path within the pipeline parity tolerances; the
+   dense family's Laplace init on ``S = R R^T`` (1e-3 of its largest
+   entry; cuSOLVER's and LAPACK's jitter ladders may part at the edge of
+   float32) and its pipeline; a cv fit (rtol 1e-3); and
+   ``price_options_batch`` (values rtol 2e-3, atol 1e-3 of the largest
+   strike; percentiles within 2 / S).
 
-Launch counts are reset before each of phases 4-6 and read after it; a
-kernel's ``launches`` is the count from the phase that drives its path,
-and ``launches_by_path`` its counts in the quantiles call of phase 4 and
-in ``Volt().Train()`` alone (S1 must launch in both).  The second-to-last
+Every phase prints its times with the card's name and power limit.  The
+vol band: recovered vol / true SABR vol, the median over series, inside
+(0.3, 3.5).  Launch counts are reset before each of phases 4-10 and read
+after it; a kernel's ``launches`` is the count from the phase that drives
+its path, and ``launches_by_path`` its counts in the quantiles call of
+phase 4, in ``Volt().Train()`` alone (S1 must launch in both) and in
+``price_options_batch``.  The second-to-last
 line is a JSON object with each kernel's launches, error, times, bound
 (``bound_ms``: the largest of its bytes over 3.35 TB/s, its operations
 over the H100's peak for their type and its special functions over the
@@ -87,10 +116,12 @@ Two trees of the port against each other on one card::
     python3 chip_smoke.py --ab PARENT_DIR --phase kernel_times \\
         --phase main_path --phase main_path
 
-runs the named phases (``PHASES``; a phase named twice runs twice, the
-first cold) in four fresh processes, in the trees parent, this one, this
-one, parent, each with its own package and kernels and this file's
-phases and timers.  It prints one JSON line per process and writes the
+runs the named phases (``PHASES``: ``kernel_times``, ``kalman_times``,
+``main_path``, ``gpcv_full``, ``gpcv_cv``, ``gpcv_sparse``,
+``option_pricing``; a phase named twice runs twice, the first cold) in
+four fresh processes, in the trees parent, this one, this one, parent,
+each with its own package and kernels and this file's phases and
+timers.  It prints one JSON line per process and writes the
 four to ``--out`` (default ``chiprun_out/chip_ab.json``).  ``--phase``
 alone runs the phases in this tree, or in ``--package-root``.
 """
@@ -591,9 +622,12 @@ def time_gh_ell(torch, shapes=((64, 999), (500, 999))):
     return times
 
 
-def grids(torch, n, h, device):
+def grids(torch, n, h, device, start=0):
+    """The return grid ``x`` (``n`` points from ``start`` steps of 1/252)
+    and the ``h`` points after it."""
     dt = 1.0 / 252
-    x = torch.arange(n, dtype=torch.float32, device=device) * dt
+    x = torch.arange(start, n + start, dtype=torch.float32,
+                     device=device) * dt
     test_x = torch.arange(h, dtype=torch.float32, device=device) * dt \
         + x[-1] + dt
     return x, test_x
@@ -629,12 +663,8 @@ def run_main_path(torch, vt, native):
         fail(f"ok flags {aux['ok'].tolist()}")
     if not bool((fan.diff(dim=-2) >= 0).all()):
         fail("fan decreases across quantile levels")
-    vol = aux["vol"].cpu().numpy()
-    ratio = float(statistics.median(
-        (vol[i].mean() / v_true[i, 1:].mean()) for i in range(b)))
-    print(f"   recovered vol / true SABR vol, median over assets: {ratio:.3f}")
-    if not 0.3 < ratio < 3.5:
-        fail("recovered vol path off by more than an order of magnitude")
+    check_vol_band(aux["vol"], v_true, "main path")
+    SHARED["tridiag_vol"] = aux["vol"]
 
     cfg_s = PipelineConfig(output="samples")
     t1 = time.perf_counter()
@@ -773,9 +803,232 @@ def _sync(torch, dev):
         torch.cuda.synchronize()
 
 
-def check_small_agreement(torch, vt):
-    """Card against CPU on the parity tests' small input and noise."""
+# what one phase leaves for a later one in the same process: the main
+# path's tridiagonal vol, which the dense and cv GPCV phases compare with
+SHARED = {}
+CARD = "no card"
+
+
+def vol_ratio(vol, v_true):
+    """Recovered vol / true SABR vol, the median over series of their
+    means (``vol (B, n)``, ``v_true (B, n + 1)``)."""
+    vol = vol.detach().cpu().numpy().reshape(-1, vol.shape[-1])
+    v_true = v_true.reshape(-1, v_true.shape[-1])
+    return float(statistics.median(
+        vol[i].mean() / v_true[i, 1:].mean() for i in range(len(vol))))
+
+
+def check_vol_band(vol, v_true, what):
+    ratio = vol_ratio(vol, v_true)
+    print(f"   {what}: recovered vol / true SABR vol, median over series "
+          f"{ratio:.3f} (band 0.3-3.5)")
+    if not 0.3 < ratio < 3.5:
+        fail(f"{what}: recovered vol off by more than an order of magnitude")
+    return ratio
+
+
+def median_rel(a, b):
+    return float(((a - b).abs() / b.abs()).median())
+
+
+def tridiag_vol(torch, vt, dev, x, ys, iters=300):
+    """The main path's GPCV vol (300 Adam steps on the tridiagonal
+    family, exp likelihood): from the ``main_path`` phase of this process,
+    else fitted here."""
+    if dev == "cuda" and "tridiag_vol" in SHARED:
+        return SHARED["tridiag_vol"]
+    return vt.learn_gpcv(x, ys, iters, opt="adam")
+
+
+def run_gpcv_full(torch, vt, native, dev="cuda", b=64, n=999, h=100,
+                  iters=300):
+    """``fit_forecast_batch`` with the dense GPCV family (``gpcv_q="full"``,
+    quantiles, the other defaults) on the main path's series."""
     from volt_tpu_torch.parallel import PipelineConfig, fit_forecast_batch
+
+    f, v_true = vt.data.sabr_paths(steps=n + 1, seed=0, n_paths=b)
+    x, test_x = grids(torch, n, h, dev)
+    ys = torch.tensor(f, device=dev)
+    cfg = PipelineConfig(gpcv_q="full", output="quantiles", gpcv_iters=iters,
+                         vol_iters=iters, data_iters=iters)
+    g = torch.Generator(device=dev).manual_seed(0)
+    native.launches.clear()
+    t0 = time.perf_counter()
+    fan, aux = fit_forecast_batch(g, x, ys, test_x, cfg)
+    _sync(torch, dev)
+    total = time.perf_counter() - t0
+    launches = dict(native.launches)
+    stages = {k: round(v, 4) for k, v in aux["stage_seconds"].items()}
+    print(f"   gpcv_q='full' call: {total:.3f} s; stages (s) {stages} "
+          f"({CARD})")
+    print(f"   kernel launches in the call: {launches}")
+    if tuple(fan.shape) != (b, len(cfg.quantile_levels), h) or \
+            not torch.isfinite(fan).all():
+        fail(f"gpcv_full: fan shape {tuple(fan.shape)} or non-finite fan")
+    if not bool(aux["ok"].all()):
+        fail(f"gpcv_full: ok flags {aux['ok'].tolist()}")
+    if not bool((fan.diff(dim=-2) >= 0).all()):
+        fail("gpcv_full: fan decreases across quantile levels")
+    ratio = check_vol_band(aux["vol"], v_true, "gpcv_full")
+    rel = median_rel(aux["vol"], tridiag_vol(torch, vt, dev, x, ys, iters))
+    print(f"   dense against tridiagonal GPCV vol: median rel diff {rel:.3e}")
+    return launches, {"s": total, "stages": stages, "vol_ratio": ratio,
+                      "vol_rel_to_tridiag": rel,
+                      "root_shape": list(aux["gpcv_params"][
+                          "chol_variational_covar"].shape)}
+
+
+def run_gpcv_cv(torch, vt, native, dev="cuda", b=64, n=999, ngvi_iters=30,
+                adam_iters=300):
+    """``learn_gpcv(param="cv")`` on the main path's series by NGVI and by
+    Adam, each beside the exp fit of the same input."""
+    f, v_true = vt.data.sabr_paths(steps=n + 1, seed=0, n_paths=b)
+    x, _ = grids(torch, n, 1, dev)
+    ys = torch.tensor(f, device=dev)
+    out = {}
+    native.launches.clear()
+    for opt, iters in (("ngvi", ngvi_iters), ("adam", adam_iters)):
+        t0 = time.perf_counter()
+        cv = vt.learn_gpcv(x, ys, iters, param="cv", opt=opt)
+        _sync(torch, dev)
+        out[f"{opt}_s"] = time.perf_counter() - t0
+        ok = torch.isfinite(cv).all(dim=-1)
+        if tuple(cv.shape) != (b, n) or not bool(ok.all()):
+            fail(f"gpcv_cv {opt}: shape {tuple(cv.shape)}, finite series "
+                 f"{ok.tolist()}")
+        out[f"{opt}_vol_ratio"] = check_vol_band(cv, v_true,
+                                                 f"gpcv_cv {opt} x{iters}")
+        exp = (tridiag_vol(torch, vt, dev, x, ys, iters) if opt == "adam"
+               else vt.learn_gpcv(x, ys, iters, opt=opt))
+        out[f"{opt}_rel_to_exp"] = median_rel(cv, exp)
+        print(f"   cv {opt} x{iters}: {out[f'{opt}_s']:.3f} s ({CARD}); "
+              f"median rel diff from the exp fit "
+              f"{out[f'{opt}_rel_to_exp']:.3e}")
+    launches = dict(native.launches)
+    print(f"   kernel launches in the phase: {launches}")
+    return launches, out
+
+
+def run_gpcv_sparse(torch, vt, native, dev="cuda", n=16000, m=256,
+                    iters=1000):
+    """``learn_gpcv_sparse`` on one long SABR series (ROADMAP item 9's
+    n=16000), ``m`` inducing points, its default 1000 Adam steps."""
+    f, v_true = vt.data.sabr_paths(steps=n + 1, seed=3)
+    # the grid takes the simulation's own step (``sabr_paths`` spreads its
+    # steps over [0, 1]), so that the vol band compares like with like: on
+    # the 1/252 grid of the other phases the recovered vol is
+    # sqrt(252 / (n + 1)) of the true one's scale, 0.5 at n=999 but 0.13
+    # at n=16000
+    x = torch.arange(n, dtype=torch.float32, device=dev) / (n + 1)
+    ys = torch.tensor(f, device=dev)
+    native.launches.clear()
+    t0 = time.perf_counter()
+    scale, state = vt.learn_gpcv_sparse(x, ys, num_inducing=m,
+                                        train_iters=iters, return_model=True)
+    _sync(torch, dev)
+    total = time.perf_counter() - t0
+    print(f"   learn_gpcv_sparse n={n}, m={m}, {iters} Adam steps: "
+          f"{total:.3f} s ({CARD})")
+    if tuple(scale.shape) != (n,) or not torch.isfinite(scale).all():
+        fail(f"gpcv_sparse: shape {tuple(scale.shape)} or non-finite scale")
+    ratio = check_vol_band(scale[None], v_true[None], "gpcv_sparse")
+    with torch.no_grad():
+        again = state.predicted_scale()
+    err = (again - scale).abs().max().item()
+    print(f"   the returned model's predicted_scale(): max abs diff {err:.3e}"
+          f" (tol 1e-6 rel)")
+    if not torch.allclose(again, scale, rtol=1e-6, atol=0.0):
+        fail("gpcv_sparse: the returned model does not reproduce the scale")
+    return dict(native.launches), {"s": total, "vol_ratio": ratio,
+                                   "inducing": int(state.inducing_x.numel())}
+
+
+EXPIRY_STEPS = (4, 20, 62, 99)
+
+
+def run_option_pricing(torch, vt, native, dev="cuda", b=500, n=999, h=100,
+                       nsample=10000, iters=300, expiry=EXPIRY_STEPS,
+                       crps_assets=64):
+    """``price_options_batch`` at the BASELINE configuration: 500 SABR
+    series, 10k paths of 100 steps, 21 strikes from 0.8x to 1.2x the median
+    last price, four expiries, the realised prices from each series' own
+    continuation."""
+    from volt_tpu_torch.calibration import calibration, crps
+    from volt_tpu_torch.parallel import PipelineConfig, price_options_batch
+
+    f, _ = vt.data.sabr_paths(steps=n + 1 + h, seed=5, n_paths=b)
+    x, test_x = grids(torch, n, h, dev)
+    ys = torch.tensor(f[:, :n + 1], device=dev)
+    future = torch.tensor(f[:, n + 1:], device=dev)  # (B, H)
+    realized = future[:, list(expiry)]
+    strikes = torch.linspace(0.8, 1.2, 21, device=dev) * ys[:, -1].median()
+    cfg = PipelineConfig(output="samples", nsample=nsample, gpcv_iters=iters,
+                         vol_iters=iters, data_iters=iters)
+    g = torch.Generator(device=dev).manual_seed(6)
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    native.launches.clear()
+    t0 = time.perf_counter()
+    res = price_options_batch(g, x, ys, test_x, strikes, expiry, cfg,
+                              realized=realized)
+    _sync(torch, dev)
+    total = time.perf_counter() - t0
+    launches = dict(native.launches)
+    stages = {k: round(v, 4) for k, v in res["aux"]["stage_seconds"].items()}
+    grid_s = total - sum(res["aux"]["stage_seconds"].values())
+    rate = b * nsample * h / res["aux"]["stage_seconds"]["rollout"]
+    peak = (torch.cuda.max_memory_allocated() / 2 ** 30 if dev == "cuda"
+            else float("nan"))
+    print(f"   price_options_batch B={b}, {nsample} paths x {h} steps: "
+          f"{total:.3f} s; stages (s) {stages}, payoff grid "
+          f"{grid_s:.4f}; rollout {rate:.4g} path-steps/s; peak "
+          f"{peak:.2f} GiB allocated ({CARD})")
+    print(f"   kernel launches in the call: {launches}")
+
+    values, fwd, pct = res["values"], res["forwards"], res["percentiles"]
+    k, e = len(strikes), len(expiry)
+    if tuple(values.shape) != (b, k, e) or tuple(fwd.shape) != (b, e) or \
+            tuple(pct.shape) != (b, e):
+        fail(f"option_pricing: shapes {tuple(values.shape)}, "
+             f"{tuple(fwd.shape)}, {tuple(pct.shape)}")
+    if not torch.isfinite(values).all() or not bool((values >= 0).all()):
+        fail("option_pricing: values non-finite or negative")
+    rise = (values.diff(dim=1) / values[:, :-1].clamp(min=1e-30)).max()
+    if not bool((values.diff(dim=1) <= 1e-5 * values[:, :-1]).all()):
+        fail(f"option_pricing: values rise with the strike (rel {rise:.2e})")
+    if not torch.isfinite(fwd).all():
+        fail("option_pricing: non-finite forwards")
+    if not bool(((pct >= 0) & (pct <= 1)).all()):
+        fail("option_pricing: percentiles outside [0, 1]")
+    if not bool(res["aux"]["ok"].all()):
+        fail(f"option_pricing: {int((~res['aux']['ok']).sum())} assets "
+             f"failed")
+    for sym in ("volt_ewma_filter", "volt_kalman_forward",
+                "volt_kalman_backward"):
+        if dev == "cuda" and launches.get(sym, 0) < 1:
+            fail(f"option_pricing: {sym} was not launched")
+
+    levels, observed = calibration(pct)
+    paths = torch.exp(res["samples"][:crps_assets])
+    score = torch.stack([crps(paths[i], future[i]).mean()
+                         for i in range(len(paths))]).mean().item()
+    cal = {f"{lv:.2f}": round(ob, 4)
+           for lv, ob in zip(levels.tolist(), observed.tolist())}
+    print(f"   calibration(percentiles), level: observed {cal}")
+    print(f"   mean CRPS over {len(paths)} assets and {h} steps: {score:.5f}")
+    return launches, {"s": total, "stages": stages, "grid_s": grid_s,
+                      "rollout_path_steps_per_s": rate, "peak_gib": peak,
+                      "calibration": cal, "crps": score,
+                      "atm_value_mean": values[:, k // 2].mean(0).tolist()}
+
+
+def check_small_agreement(torch, vt):
+    """Card against CPU on the parity tests' small input and noise: the
+    main path, the dense GPCV family (its Laplace init, compared on
+    ``S = R R^T``, and the pipeline), a cv fit and ``price_options_batch``,
+    each at its stated tolerance."""
+    from volt_tpu_torch.parallel import (PipelineConfig, fit_forecast_batch,
+                                         price_options_batch)
 
     b, n, h, s = 2, 72, 10, 64
     f, _ = vt.data.sabr_paths(steps=n + 1, seed=77, n_paths=b)
@@ -800,6 +1053,91 @@ def check_small_agreement(torch, vt):
     if not torch.allclose(fan_g.cpu(), fan_c, rtol=2e-3, atol=1e-3):
         fail("small input: fan differs between card and CPU")
 
+    # the dense family's Laplace init (three Cholesky factorisations, whose
+    # jitter ladders may take different steps in cuSOLVER and LAPACK at the
+    # edge of float32): S = R R^T at 1e-3 of its largest entry.  On a grid
+    # from one step in, as the parity tests run it: from x = 0 the root's
+    # first entry starts at lr and Adam's first step leaves it near 7e-8,
+    # where the KL's log|diag| amplifies the two devices' rounding
+    roots = {}
+    for dev in ("cpu", "cuda"):
+        x, _ = grids(torch, n, h, dev, start=1)
+        yy = vt.train.scaled_returns(x, torch.tensor(f, device=dev))
+        m = vt.models.GPCVModel(q="full").init(x, yy, per_lane=True)
+        roots[dev] = torch.tril(m.chol_variational_covar).double().cpu()
+    s_c, s_g = (r @ r.mT for r in (roots["cpu"], roots["cuda"]))
+    err = (s_g - s_c).abs().max().item()
+    print(f"   small input: dense GPCV init S max abs diff card vs CPU "
+          f"{err:.3e} (tol {1e-3 * s_c.abs().max().item():.3e})")
+    if not err <= 1e-3 * s_c.abs().max().item():
+        fail("small input: the dense GPCV init differs between card and CPU")
+
+    # the pipeline with the dense family, 20 steps a stage (the parity
+    # tests' gpcv_q="full" run), at rtol 1e-2: Adam's normalised step moves
+    # an entry of the n x n root by about lr whatever its gradient, so the
+    # devices' different rounding of the near-zero gradients (summation
+    # order) becomes lr-sized moves.  Measured on the CPU: gradient noise
+    # of 1e-6 of the largest gradient moves the dense family's loss by up
+    # to 3.6e-3 and its vol by 2.6e-3 after 20 steps, the tridiagonal
+    # family's by 3e-5
+    cfg_full = PipelineConfig(gpcv_q="full", gpcv_iters=20, vol_iters=20,
+                              data_iters=20, k=20, nsample=s,
+                              output="quantiles")
+    res = {}
+    for dev in ("cpu", "cuda"):
+        x, test_x = grids(torch, n, h, dev, start=1)
+        res[dev] = fit_forecast_batch(
+            None, x, torch.tensor(f, device=dev), test_x, cfg_full,
+            noise={k: v.to(dev) for k, v in noise.items()})
+    (fan_c, aux_c), (fan_g, aux_g) = res["cpu"], res["cuda"]
+    rels = {key: ((aux_g[key].cpu() - aux_c[key]).abs()
+                  / aux_c[key].abs()).max().item()
+            for key in ("gpcv_loss", "vol_loss", "data_loss", "vol")}
+    rels["fan"] = ((fan_g.cpu() - fan_c).abs() / fan_c.abs()).max().item()
+    print(f"   small input, gpcv_q='full': max rel diff card vs CPU "
+          f"{ {k: f'{v:.2e}' for k, v in rels.items()} } (tol 1e-2)")
+    if not all(v <= 1e-2 for v in rels.values()):
+        fail("small input, gpcv_q='full': the pipeline differs between card "
+             "and CPU")
+
+    # a cv fit: 5 NGVI iterations, the predicted scale at rtol 1e-3
+    scales = {}
+    for dev in ("cpu", "cuda"):
+        x, _ = grids(torch, n, h, dev)
+        scales[dev] = vt.learn_gpcv(x, torch.tensor(f[0], device=dev), 5,
+                                    param="cv").cpu()
+    err = ((scales["cuda"] - scales["cpu"]).abs()
+           / scales["cpu"].abs()).max().item()
+    print(f"   small input, cv fit: predicted scale max rel diff card vs CPU "
+          f"{err:.3e} (tol 1e-3)")
+    if not err <= 1e-3:
+        fail("small input: the cv fit differs between card and CPU")
+
+    # price_options_batch on the same noise: values at the fan's
+    # tolerance (rtol 2e-3, atol 1e-3 of the largest strike); a path
+    # within that of the realised price may change side, so percentiles
+    # within 2 / S
+    cfg_s = PipelineConfig(gpcv_iters=20, vol_iters=20, data_iters=20, k=20,
+                           nsample=s, output="samples")
+    strikes = (float(f[:, -1].mean()) * torch.linspace(0.9, 1.1, 5)).tolist()
+    expiry, realized = [1, 4, 9], f[:, -1:] * [[0.99, 1.0, 1.02]]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        x, test_x = grids(torch, n, h, dev)
+        out[dev] = price_options_batch(
+            None, x, torch.tensor(f, device=dev), test_x, strikes, expiry,
+            cfg_s, realized=realized,
+            noise={k: v.to(dev) for k, v in noise.items()})
+    vc, vg = out["cpu"]["values"], out["cuda"]["values"].cpu()
+    err = (vg - vc).abs().max().item()
+    pct = (out["cuda"]["percentiles"].cpu()
+           - out["cpu"]["percentiles"]).abs().max().item()
+    print(f"   small input, price_options_batch: values max abs diff card vs "
+          f"CPU {err:.3e}, percentiles {pct:.3e} (tol {2 / s:.3e})")
+    if not torch.allclose(vg, vc, rtol=2e-3, atol=1e-3 * max(strikes)) or \
+            not pct <= 2 / s:
+        fail("small input: price_options_batch differs between card and CPU")
+
 
 def setup(package_root=None):
     """Phases 1 and 2: the card, then the kernels built.  ``package_root``
@@ -822,7 +1160,8 @@ def setup(package_root=None):
                          text=True, timeout=60)
     if smi.returncode != 0:
         fail(f"nvidia-smi: {smi.stderr.strip()}")
-    card = smi.stdout.strip()
+    global CARD
+    card = CARD = smi.stdout.strip()
     print(card)
     print(f"   torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}; {Path(vt.__file__).parent}")
@@ -875,6 +1214,22 @@ def smoke():
     paths["gh_ell_backward"] = paths["gh_ell_forward"]
     done(t0)
 
+    t0 = phase("gpcv_full: fit_forecast_batch(gpcv_q='full'), B=64, n=999")
+    _, gpcv_full = run_gpcv_full(torch, vt, native)
+    done(t0)
+
+    t0 = phase("gpcv_cv: learn_gpcv(param='cv'), B=64, n=999, NGVI and Adam")
+    _, gpcv_cv = run_gpcv_cv(torch, vt, native)
+    done(t0)
+
+    t0 = phase("gpcv_sparse: learn_gpcv_sparse, n=16000, 256 inducing")
+    _, gpcv_sparse = run_gpcv_sparse(torch, vt, native)
+    done(t0)
+
+    t0 = phase("option_pricing: price_options_batch, B=500, 10k x 100 paths")
+    pricing_launches, pricing = run_option_pricing(torch, vt, native)
+    done(t0)
+
     for k in kernels:
         path, counts = paths[k["name"]]
         k["path"] = path
@@ -882,7 +1237,8 @@ def smoke():
         k["launches"] = counts.get(sym, 0)
         k["launches_by_path"] = {
             "fit_forecast_batch": launches.get(sym, 0),
-            "Volt().Train()": api["train_launches"].get(sym, 0)}
+            "Volt().Train()": api["train_launches"].get(sym, 0),
+            "price_options_batch": pricing_launches.get(sym, 0)}
         if k["launches"] < 1:
             fail(f"kernel {k['name']} was not launched by its path ({path})")
 
@@ -891,7 +1247,10 @@ def smoke():
     done(t0)
 
     print(json.dumps({"card": card, "main_path": main_path,
-                      "reference_api": api, "gpcv_gh": gh}))
+                      "reference_api": api, "gpcv_gh": gh,
+                      "gpcv_full": gpcv_full, "gpcv_cv": gpcv_cv,
+                      "gpcv_sparse": gpcv_sparse,
+                      "option_pricing": pricing}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -906,6 +1265,13 @@ PHASES = {
                                                "gh_ell": time_gh_ell(torch)},
     "main_path": lambda torch, vt, native: run_main_path(torch, vt,
                                                          native)[1],
+    "gpcv_full": lambda torch, vt, native: run_gpcv_full(torch, vt,
+                                                         native)[1],
+    "gpcv_cv": lambda torch, vt, native: run_gpcv_cv(torch, vt, native)[1],
+    "gpcv_sparse": lambda torch, vt, native: run_gpcv_sparse(torch, vt,
+                                                             native)[1],
+    "option_pricing": lambda torch, vt, native: run_option_pricing(
+        torch, vt, native)[1],
 }
 PHASES_TAG = "chip_smoke phases: "
 

@@ -222,3 +222,146 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         tvc.volt_covariance_cuda(torch.zeros(5, device="cuda"))
     with pytest.raises(ValueError):
         tgh.gh_ell_forward_cuda(z, z, torch.zeros(2, 4, device="cuda"))
+
+
+# --- the GPCV families and the option layer on the card ---------------------
+# (plain PyTorch on both devices: the card against the CPU, whose runs the
+# parity tests hold against the JAX package)
+
+def _sabr(b, n, seed):
+    from volt_tpu_torch.data import sabr_paths
+
+    f, _ = sabr_paths(steps=n + 1, seed=seed, n_paths=b)
+    x = torch.arange(1, n + 1, dtype=torch.float32) / 252.0
+    return x, torch.tensor(f)
+
+
+def test_optax_adam_card_equals_cpu(cuda):
+    """The same gradients give the same parameters on both devices: every
+    step is IEEE multiplies, adds, divisions and square roots."""
+    from volt_tpu_torch.optim import Adam
+
+    g = torch.Generator().manual_seed(1)
+    p0 = torch.randn(3, 40, generator=g)
+    grads = torch.randn(10, 3, 40, generator=g) * 10.0 ** (
+        -4 + 4 * torch.rand(10, 3, 40, generator=g))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = torch.nn.Parameter(p0.clone().to(dev))
+        opt = Adam([p], 0.01, 10)
+        for i in range(10):
+            p.grad = grads[i].to(dev)
+            opt.step()
+        out[dev] = p.detach().cpu()
+    assert torch.equal(out["cpu"], out["cuda"])
+
+
+def test_cholesky_ladder_per_lane_on_the_card(cuda):
+    """One lane of three needs jitter (a BM Gram from x = 0); per lane, the
+    other two keep their bare factors, as on the CPU."""
+    tch = importlib.import_module("volt_tpu_torch.ops.chol")
+    g = torch.Generator().manual_seed(2)
+    a = torch.randn(3, 8, 8, generator=g)
+    mats = 1e-3 * (a @ a.mT / 8 + torch.eye(8))
+    x0 = torch.arange(8.0)
+    mats[1] = 1e-3 * torch.minimum(x0[:, None], x0[None, :])
+    got = tch.psd_safe_cholesky(mats.cuda(), per_lane=True).cpu()
+    want = tch.psd_safe_cholesky(mats, per_lane=True)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-9)
+    bare = torch.linalg.cholesky(mats[[0, 2]].double()).float()
+    torch.testing.assert_close(got[[0, 2]], bare, rtol=1e-5, atol=1e-9)
+
+
+@pytest.mark.parametrize("param", ["exp", "cv"])
+def test_dense_gpcv_card_matches_cpu(cuda, param):
+    """The dense family's Laplace init on ``S = R R^T`` (1e-3 of its largest
+    entry: three float32 factorisations in cuSOLVER and LAPACK), and its
+    ELBO and gradient at the CPU's init (rtol 1e-4)."""
+    from volt_tpu_torch.convert import load_jax_params, params_tree
+    from volt_tpu_torch.models import GPCVModel
+    from volt_tpu_torch.train import scaled_returns
+
+    x, f = _sabr(4, 60, 3)
+    yy = scaled_returns(x, f)
+    cpu = GPCVModel(q="full", param=param).init(x, yy, per_lane=True)
+    card = GPCVModel(q="full", param=param).init(x.cuda(), yy.cuda(),
+                                                 per_lane=True)
+    r_c, r_g = (torch.tril(m.chol_variational_covar.detach()).double().cpu()
+                for m in (cpu, card))
+    s_c, s_g = r_c @ r_c.mT, r_g @ r_g.mT
+    assert (s_g - s_c).abs().max() <= 1e-3 * s_c.abs().max()
+    card = load_jax_params(GPCVModel(q="full", param=param),
+                           params_tree(cpu), "cuda")
+    e_c, e_g = cpu.elbo(x, yy), card.elbo(x.cuda(), yy.cuda())
+    torch.testing.assert_close(e_g.cpu(), e_c, rtol=1e-4, atol=0.0)
+    e_c.sum().backward()
+    e_g.sum().backward()
+    on_card = dict(card.named_parameters())
+    for name, p in cpu.named_parameters():
+        scale = p.grad.abs().max().item()
+        torch.testing.assert_close(on_card[name].grad.cpu(), p.grad,
+                                   rtol=1e-4, atol=1e-6 * scale, msg=name)
+
+
+@pytest.mark.parametrize("fn", ["scale", "hessian", "latent_from_scale",
+                                "expected_log_prob"])
+def test_cv_likelihood_card_matches_cpu(cuda, fn):
+    """The cv mixture on the card (its Hessian by ``torch.func``): rtol
+    1e-5, atol 1e-6 of the largest value."""
+    lik = importlib.import_module("volt_tpu_torch.likelihoods")
+    g = torch.Generator().manual_seed(4)
+    f = 1.5 * torch.randn(2, 50, generator=g)
+    y = 0.3 * torch.randn(2, 50, generator=g)
+    var = 10.0 ** (-4 + 4 * torch.rand(2, 50, generator=g))
+    target = torch.exp(torch.randn(2, 50, generator=g) - 1.0)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        m = lik.VolatilityGaussianLikelihood(param="cv").init(
+            (2,), device=dev, generator=torch.Generator().manual_seed(5))
+        a = [t.to(dev) for t in (f, y, var, target)]
+        with torch.no_grad():
+            out[dev] = {
+                "scale": lambda: m.scale(a[0]),
+                "hessian": lambda: m.neg_log_prob_hessian(a[1], a[0]),
+                "latent_from_scale": lambda: m.latent_from_scale(a[3]),
+                "expected_log_prob": lambda: m.expected_log_prob(a[1], a[0],
+                                                                 a[2]),
+            }[fn]().cpu()
+    scale = out["cpu"].abs().max().item()
+    torch.testing.assert_close(out["cuda"], out["cpu"], rtol=1e-5,
+                               atol=1e-6 * scale)
+
+
+def test_price_options_batch_card_matches_cpu(cuda):
+    """The pricing entry on the same normals: values at the pipeline's fan
+    tolerance (rtol 2e-3, atol 1e-3 of the largest strike), percentiles
+    within 2 / S (a path that close to the realised price may change
+    side); K1 and S1 launched on the card."""
+    from volt_tpu_torch.parallel import PipelineConfig, price_options_batch
+
+    b, n, h, s = 2, 48, 8, 64
+    x, f = _sabr(b, n, 6)
+    test_x = x[-1] + torch.arange(1, h + 1) / 252.0
+    g = torch.Generator().manual_seed(7)
+    noise = {"vol_r0": torch.randn(b, s, generator=g),
+             "vol_z": torch.randn(b, s, h, generator=g),
+             "zs": torch.randn(b, s, h, generator=g)}
+    cfg = PipelineConfig(gpcv_iters=20, vol_iters=20, data_iters=20, k=20,
+                         nsample=s, output="samples")
+    strikes = (f[:, -1].mean() * torch.linspace(0.9, 1.1, 5)).tolist()
+    realized = f[:, -1:] * torch.tensor([[0.99, 1.0, 1.02]])
+    out = {}
+    for dev in ("cpu", "cuda"):
+        before = dict(native.launches)
+        out[dev] = price_options_batch(
+            None, x.to(dev), f.to(dev), test_x.to(dev), strikes, [1, 4, 7],
+            cfg, realized=realized.numpy(),
+            noise={k: v.to(dev) for k, v in noise.items()})
+    for sym in ("volt_ewma_filter", "volt_kalman_forward",
+                "volt_kalman_backward"):
+        assert native.launches[sym] > before.get(sym, 0)
+    torch.testing.assert_close(out["cuda"]["values"].cpu(),
+                               out["cpu"]["values"], rtol=2e-3,
+                               atol=1e-3 * max(strikes))
+    pct = out["cuda"]["percentiles"].cpu() - out["cpu"]["percentiles"]
+    assert pct.abs().max() <= 2.0 / s

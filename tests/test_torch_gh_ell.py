@@ -156,19 +156,19 @@ def test_likelihood_expected_log_prob(method):
     y, mu, s2 = _inputs(3, (2, 50), False)
     want = JLik(param="exp").expected_log_prob({}, j32(y), j32(mu), j32(s2),
                                                method=method)
-    got = VolatilityGaussianLikelihood().expected_log_prob(
+    got = VolatilityGaussianLikelihood(param="exp").expected_log_prob(
         t32(y), t32(mu), t32(s2), method=method)
     close(got, want, 1e-5, 1e-6)
     if method == "quadrature":
         close(got, _gh_ell_plain(t32(y), t32(mu), t32(s2), 75), 0.0)
     with pytest.raises(ValueError):
-        VolatilityGaussianLikelihood().expected_log_prob(
+        VolatilityGaussianLikelihood(param="exp").expected_log_prob(
             t32(y), t32(mu), t32(s2), method="mc")
 
 
 def test_expected_scale_gh_and_monte_carlo():
     _, mu, s2 = _inputs(4, (2, 40), False)
-    jl, tl = JLik(param="exp"), VolatilityGaussianLikelihood()
+    jl, tl = JLik(param="exp"), VolatilityGaussianLikelihood(param="exp")
     close(tl.expected_scale(t32(mu), t32(s2)),
           jl.expected_scale({}, j32(mu), j32(s2)), 1e-5)
     key = jax.random.key(7)
@@ -197,7 +197,8 @@ def test_gpcv_elbo_on_the_gh_term():
     def jelbo(p):
         return jax.vmap(lambda pp, y: jm.elbo(pp, j32(x), y))(p, j32(yy))
 
-    tm = load_jax_params(GPCVModel(ell_method="quadrature"), params)
+    tm = load_jax_params(GPCVModel(q="tridiag", ell_method="quadrature"),
+                         params)
     elbo = tm.elbo(t32(x), t32(yy))
     close(elbo, jelbo(params), 1e-5)
     elbo.sum().backward()

@@ -55,7 +55,7 @@ def gpcv_params(data):
 
 
 def test_gpcv_init(data, gpcv_params):
-    tm = GPCVModel().init(t32(data["x"]), t32(data["yy"]))
+    tm = GPCVModel(q="tridiag").init(t32(data["x"]), t32(data["yy"]))
     close(params_tree(tm), gpcv_params, RTOL, 1e-6)
 
 
@@ -75,7 +75,7 @@ def test_gpcv_elbo_and_gradient(data, gpcv_params):
     def jelbo(p):
         return jax.vmap(lambda pp, y: jm.elbo(pp, x, y))(p, yy)
 
-    tm = load_jax_params(GPCVModel(), params)
+    tm = load_jax_params(GPCVModel(q="tridiag"), params)
     elbo = tm.elbo(t32(data["x"]), t32(data["yy"]))
     close(elbo, jelbo(params), RTOL)
     elbo.sum().backward()
@@ -87,16 +87,23 @@ def test_gpcv_predicted_scale(data, gpcv_params):
     params = _perturbed(gpcv_params, 2)
     jm = JGPCV(kernel="bm", q="tridiag")
     want = jax.vmap(lambda p: jm.predicted_scale(p, j32(data["x"])))(params)
-    tm = load_jax_params(GPCVModel(), params)
+    tm = load_jax_params(GPCVModel(q="tridiag"), params)
     close(tm.predicted_scale(), want, RTOL)
 
 
 @pytest.mark.parametrize("kwargs,exc", [({"kernel": "fbm"},
                                          NotImplementedError),
-                                        ({"q": "full"}, NotImplementedError),
-                                        ({"param": "cv"}, NotImplementedError),
+                                        ({"q": "full"}, None),
+                                        ({"param": "cv"}, None),
                                         ({"kernel": "rbf"}, ValueError)])
 def test_gpcv_outside_the_slice(kwargs, exc):
+    """FBM still raises; the dense family and the cv likelihood construct
+    with the JAX package's defaults for the rest."""
+    if exc is None:
+        m = GPCVModel(**kwargs)
+        want = {"q": "full", "param": "exp", **kwargs}
+        assert (m.q, m.likelihood.param) == (want["q"], want["param"])
+        return
     with pytest.raises(exc):
         GPCVModel(**kwargs)
 
@@ -255,7 +262,7 @@ def test_rollout_matches(data, mean, k, rule, theta):
 # --- parameter conversion ----------------------------------------------------
 
 def test_params_roundtrip(gpcv_params):
-    tm = load_jax_params(GPCVModel(), gpcv_params)
+    tm = load_jax_params(GPCVModel(q="tridiag"), gpcv_params)
     close(params_tree(tm), gpcv_params, 0.0)
     assert {n for n, _ in tm.named_parameters()} == {
         "kernel.raw_vol", "mean.constant", "variational_mean", "q_log_d",

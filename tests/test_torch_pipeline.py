@@ -28,6 +28,7 @@ from volt_tpu_torch.convert import load_jax_params
 from volt_tpu_torch.models import GPCVModel
 from volt_tpu_torch.parallel import (PipelineConfig, fit_forecast,
                                      fit_forecast_batch, warm_start)
+from volt_tpu_torch.parallel.pipeline import _resolve_config
 from volt_tpu_torch.train import scaled_returns
 
 B, N, H, S, DT = 2, 72, 10, 64, 1.0 / 252
@@ -145,7 +146,7 @@ def test_warm_refit(data, runs):
                                   init_params=init)
     assert aux["ok"].all()
     # the first warm step evaluates the warm-start parameters themselves
-    gpcv = load_jax_params(GPCVModel(), init["gpcv"])
+    gpcv = load_jax_params(GPCVModel(q="tridiag"), init["gpcv"])
     with torch.no_grad():
         want = -gpcv.elbo(t32(x), scaled_returns(t32(x), t32(f)))
     close(aux["gpcv_losses"][:, 0], want, 1e-6)
@@ -192,7 +193,7 @@ def test_every_mean_runs(data, mean):
 
 @pytest.mark.parametrize("field,value,exc", [
     ("gpcv_opt", "sgd", ValueError),
-    ("gpcv_q", "full", NotImplementedError),
+    ("gpcv_q", "full", None),
     ("kernel", "fbm", NotImplementedError),
     ("vol_mll", "dense", ValueError),
     ("mean_func", "nope", ValueError),
@@ -201,6 +202,9 @@ def test_every_mean_runs(data, mean):
 def test_config_outside_the_slice(data, field, value, exc):
     x, f, test_x = data
     cfg = dataclasses.replace(PipelineConfig(**STD), **{field: value})
+    if exc is None:  # ported: the configuration is taken as it is
+        assert _resolve_config(cfg) == cfg
+        return
     with pytest.raises(exc, match="ROADMAP" if exc is NotImplementedError
                        else None):
         fit_forecast_batch(None, t32(x), t32(f), t32(test_x), cfg)

@@ -68,7 +68,7 @@ def test_ngvi_loss_trajectory(data):
     module = JGPCV(kernel="bm", q="tridiag")
     yy = jtrain.scaled_returns(j32(x), j32(f))
     params, losses = j_ngvi(module, module.init(j32(x), yy), j32(x), yy, 10)
-    tm = GPCVModel().init(t32(x), t32(np.asarray(yy)))
+    tm = GPCVModel(q="tridiag").init(t32(x), t32(np.asarray(yy)))
     got = ngvi_tridiag_fit(tm, t32(x), t32(np.asarray(yy)), 10)
     assert got.shape == (10,)
     close(got, losses, NGVI_RTOL, 1e-6)
@@ -140,9 +140,13 @@ def test_aliases_and_unported_entries(data):
     assert ttrain.TrainVolModel is ttrain.train_vol_model
     assert ttrain.TrainDataModel is ttrain.train_data_model
     assert ttrain.TrainVoltMagpieModel is ttrain.train_volt_magpie
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttrain.learn_gpcv(t32(x), t32(f), 2, q="full")
-    for entry in (ttrain.learn_gpcv_sparse, ttrain.learn_gpcv_multitask,
+    # ported: a short call of each runs
+    got = ttrain.learn_gpcv(t32(x), t32(f), 2, q="full")
+    assert got.shape == (N,) and torch.isfinite(got).all()
+    got = ttrain.learn_gpcv_sparse(t32(x), t32(f), num_inducing=8,
+                                   train_iters=2)
+    assert got.shape == (N,) and torch.isfinite(got).all()
+    for entry in (ttrain.learn_gpcv_multitask,
                   ttrain.train_basic_model, ttrain.train_volt_multitask):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             entry(t32(x), t32(f))

@@ -10,16 +10,21 @@ The hand-written CUDA kernels live in ``csrc/`` and are built on first use
 in the same module, which CPU tensors take.  Ported so far: the batched
 main path, :func:`volt_tpu_torch.parallel.fit_forecast_batch` (BM kernel,
 tridiagonal GPCV by Adam or NGVI, spectral or Kalman vol MLL, every mean),
-and the single-asset reference API: the training entries of
+the single-asset reference API: the training entries of
 :mod:`volt_tpu_torch.train`, the forecasts of :mod:`volt_tpu_torch.rollouts`
-and :class:`~volt_tpu_torch.models.Volt`.
+and :class:`~volt_tpu_torch.models.Volt`; the GPCV families (the ``cv``
+likelihood, the dense and sparse ``q``, prediction onto test grids); and
+the option layer: :mod:`volt_tpu_torch.options`,
+:mod:`volt_tpu_torch.calibration` and
+:func:`volt_tpu_torch.parallel.price_options_batch`.
 """
 
 __version__ = "0.2.0"
 
-from . import convert, data, gp, kernels, likelihoods, means, models, ops
-from . import parallel, rollouts, train
+from . import calibration, convert, data, gp, kernels, likelihoods, means
+from . import models, ops, options, parallel, rollouts, train
 from .models import Volt
+from .options import ECDF, Pricer, ecdf, pricer
 from .parallel import (PipelineConfig, fit_forecast, fit_forecast_batch,
                        warm_start)
 from .rollouts import generate_prediction
@@ -28,8 +33,8 @@ from .rollouts import mean_prediction
 from .rollouts import rollouts as Rollouts
 from .rollouts import sample_prediction, sample_vol_paths, volt_posterior
 from .train import (LearnGPCV, TrainDataModel, TrainVolModel,
-                    TrainVoltMagpieModel, learn_gpcv, train_data_model,
-                    train_vol_model, train_volt_magpie)
+                    TrainVoltMagpieModel, learn_gpcv, learn_gpcv_sparse,
+                    train_data_model, train_vol_model, train_volt_magpie)
 
 __all__ = [
     "convert",
@@ -43,8 +48,11 @@ __all__ = [
     "parallel",
     "rollouts",
     "train",
+    "options",
+    "calibration",
     "Volt",
     "learn_gpcv",
+    "learn_gpcv_sparse",
     "train_vol_model",
     "train_data_model",
     "train_volt_magpie",
@@ -63,5 +71,9 @@ __all__ = [
     "fit_forecast",
     "fit_forecast_batch",
     "warm_start",
+    "ecdf",
+    "pricer",
+    "ECDF",
+    "Pricer",
     "__version__",
 ]

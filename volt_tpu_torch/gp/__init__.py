@@ -1,6 +1,12 @@
 from .exact import exact_mll, posterior
 from .natural import ngvi_tridiag_fit, tridiag_matvec
-from .variational import exp_laplace_inv_hessian, running_std_latent_init
+from .variational import (VariationalState, elbo_at_inducing,
+                          elbo_at_inducing_whitened, exp_laplace_inv_hessian,
+                          laplace_initialize, running_std_latent_init,
+                          variational_predict, variational_predict_whitened)
 
 __all__ = ["exact_mll", "posterior", "ngvi_tridiag_fit", "tridiag_matvec",
-           "exp_laplace_inv_hessian", "running_std_latent_init"]
+           "VariationalState", "elbo_at_inducing", "elbo_at_inducing_whitened",
+           "variational_predict", "variational_predict_whitened",
+           "laplace_initialize", "exp_laplace_inv_hessian",
+           "running_std_latent_init"]

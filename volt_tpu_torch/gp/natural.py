@@ -7,7 +7,11 @@ Per iteration, every piece O(n):
   precision and ``curv = max(-2 dELL/ds, 0)`` the expected curvature;
 * mean ``m <- m + beta Q^{-1} (dELL/dm - P (m - mu0))`` by two bidiagonal
   solves;
-* one Adam step (optax's defaults) on the hyperparameters, holding q.
+* one Adam step (optax's, :class:`volt_tpu_torch.optim.Adam`) on the
+  hyperparameters, holding q: the kernel vol and constant mean, through
+  the KL alone for the exp likelihood (its ELL depends on no
+  hyperparameter), and with the cv mixture's triplets through the whole
+  ELBO for ``param="cv"``.
 
 ``(dELL/dm, dELL/ds)`` come from autograd through the expected
 log-likelihood, so with ``ell_method="quadrature"`` they run kernel K3's
@@ -19,6 +23,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..optim import Adam
 from ..ops.bidiag import (bidiag_chol_from_tridiag, bidiag_solve_lower,
                           bidiag_solve_upper, min_precision, takahashi_band,
                           tridiag_q_kl_bm_prior)
@@ -43,14 +48,19 @@ def ngvi_tridiag_fit(module, train_x, y, train_iters: int,
     Returns the per-iteration negative ELBO ``(train_iters, *batch)``.
 
     ``rho`` damps the precision update, ``beta`` the mean step;
-    ``hyper_lr`` is the Adam rate of the kernel vol and constant mean.
+    ``hyper_lr`` is the Adam rate of the hyperparameters (kernel vol,
+    constant mean, and the cv likelihood's triplets).
     """
     if module.q != "tridiag":
         raise ValueError("ngvi_tridiag_fit requires a q='tridiag' module")
     jitter = module._KL_JITTER
     n = y.shape[-1]
-    hypers = [module.kernel.raw_vol, module.mean.constant]
-    opt = torch.optim.Adam(hypers, lr=hyper_lr, betas=(0.9, 0.999), eps=1e-8)
+    # the exp ELL depends on no hyperparameter: the hyper step needs only
+    # the KL's gradient; the cv mixture's triplets enter the ELL
+    ell_depends_on_hypers = module.likelihood.param != "exp"
+    hypers = [module.kernel.raw_vol, module.mean.constant,
+              *module.likelihood.parameters()]
+    opt = Adam(hypers, hyper_lr, train_iters)
 
     def ell_mean(m, s):
         return torch.mean(module.likelihood.expected_log_prob(
@@ -86,13 +96,17 @@ def ngvi_tridiag_fit(module, train_x, y, train_iters: int,
             m = m.detach() + beta * bidiag_solve_upper(
                 d, e, bidiag_solve_lower(d, e, grad_m))
             s = takahashi_band(d, e)[0]
-        # the exp ELL depends on no hyperparameter: only the KL's gradient
-        opt.zero_grad(set_to_none=True)
+        opt.zero_grad()
         kl = tridiag_q_kl_bm_prior(train_x, module.kernel.vol(), m, d, e,
                                    module.mean(train_x), jitter=jitter)
-        (kl.sum() / n).backward()
-        with torch.no_grad():
-            losses.append(kl.detach() / n - ell_mean(m, s))
+        if ell_depends_on_hypers:
+            loss = kl / n - ell_mean(m, s)
+            loss.sum().backward()
+            losses.append(loss.detach())
+        else:
+            (kl.sum() / n).backward()
+            with torch.no_grad():
+                losses.append(kl.detach() / n - ell_mean(m, s))
         opt.step()
 
     module.variational_mean = nn.Parameter(m.detach())

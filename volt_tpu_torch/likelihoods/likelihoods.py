@@ -7,7 +7,7 @@ import math
 import torch
 from torch import nn
 
-from ..ops.constraints import GreaterThan
+from ..ops.constraints import GreaterThan, Interval, Positive, softplus
 from ..ops.gh_ell import exp_log_prob, exp_scale, gh_expected_log_prob
 from ..ops.quadrature import DEFAULT_NUM_LOCS, expected_value
 
@@ -35,46 +35,158 @@ class GaussianLikelihood(nn.Module):
 
 
 class VolatilityGaussianLikelihood(nn.Module):
-    """``y ~ N(0, scale(f)^2)`` with ``scale = max(exp(min(f, 80)), 1e-3)``
-    (the ``"exp"`` parameterisation; no parameters)."""
+    """Heteroscedastic volatility observations ``y ~ N(0, scale(f)^2)``.
 
-    def __init__(self, param: str = "exp"):
+    ``"cv"`` (Wilson & Ghahramani's copula-process form, the default):
+    ``scale = sum_k a_k softplus(b_k f + c_k)`` over ``K`` triplets, ``a``
+    under ``Positive``, ``b`` under ``Interval(0, 3)``, ``c`` under
+    ``Interval(-3, 3)``; parameters ``raw_a``, ``raw_b``, ``raw_c``
+    ``(*batch, K)`` after :meth:`init`.  ``"exp"``: ``scale = exp(min(f,
+    80))``, no parameters.  Both clamp the scale at 1e-3.
+
+    Shapes: ``f`` carries a trailing data axis ``(*batch, n)`` (and any
+    leading node axes); the cv triplets broadcast against its batch dims.
+    """
+
+    def __init__(self, K: int = 5, batch_shape: tuple = (),
+                 param: str = "cv"):
         super().__init__()
-        if param == "cv":
-            raise NotImplementedError(
-                "VolatilityGaussianLikelihood(param='cv') is not ported yet "
-                "(ROADMAP slice B, item 11: GPCV families)")
-        if param != "exp":
+        if param not in ("cv", "exp"):
             raise ValueError("param must be 'cv' or 'exp'")
+        self.K = K
+        self.batch_shape = tuple(batch_shape)
         self.param = param
+        self.a_constraint = Positive()
+        self.b_constraint = Interval(0.0, 3.0)
+        self.c_constraint = Interval(-3.0, 3.0)
+
+    def init(self, batch_shape=None, dtype=torch.float32, device=None,
+             generator=None):
+        """The cv triplets' random uniform init (``raw_b`` scaled by 0.1),
+        drawn from ``generator`` on its device (default: a CPU generator
+        seeded 0, so that the values do not depend on the device).
+        Nothing for ``"exp"``."""
+        if self.param == "exp":
+            return self
+        batch = self.batch_shape if batch_shape is None else tuple(batch_shape)
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        shape = (*batch, self.K)
+        draws = [torch.rand(shape, dtype=dtype, generator=generator,
+                            device=generator.device) for _ in range(3)]
+        for name, d, scale in zip(("raw_a", "raw_b", "raw_c"), draws,
+                                  (1.0, 0.1, 1.0)):
+            setattr(self, name, nn.Parameter((scale * d).to(device)))
+        return self
+
+    def trans_a(self):
+        return self.a_constraint.forward(self.raw_a)
+
+    def trans_b(self):
+        return self.b_constraint.forward(self.raw_b)
+
+    def trans_c(self):
+        return self.c_constraint.forward(self.raw_c)
+
+    def _mixture_args(self, f):
+        """``b_k f + c_k`` ``(..., n, K)`` with the triplets ``(*batch, 1,
+        K)``."""
+        return (self.trans_b()[..., None, :] * f[..., None]
+                + self.trans_c()[..., None, :])
 
     def scale(self, f):
-        """Observation std; ``f`` capped at 80 so GH tail nodes of a wide
-        ``q`` cannot overflow ``exp``."""
-        return exp_scale(f)
+        """Observation std; the exp form caps ``f`` at 80 so GH tail nodes
+        of a wide ``q`` cannot overflow ``exp``."""
+        if self.param == "exp":
+            return exp_scale(f)
+        t = softplus(self._mixture_args(f)) * self.trans_a()[..., None, :]
+        return torch.clamp(torch.sum(t, dim=-1), min=1e-3)
 
     def log_prob(self, y, f):
         """``log N(y; 0, scale(f)^2)`` elementwise."""
-        return exp_log_prob(y, f)
+        if self.param == "exp":
+            return exp_log_prob(y, f)
+        s = self.scale(f)
+        return -0.5 * (y / s) ** 2 - torch.log(s) - 0.5 * _LOG_2PI
+
+    def latent_from_scale(self, target_scale, newton_iters: int = 30):
+        """Solve ``scale(f) = target`` for ``f`` elementwise (``target``
+        clamped at 1e-3): ``log`` for ``"exp"``; for ``"cv"``, whose
+        mixture is strictly increasing in ``f``, ``newton_iters`` damped
+        Newton steps from 0, each step clipped to [-5, 5]."""
+        target = torch.clamp(target_scale, min=1e-3)
+        if self.param == "exp":
+            return torch.log(target)
+        a = self.trans_a()[..., None, :]
+        b = self.trans_b()[..., None, :]
+        f = torch.zeros_like(target)
+        for _ in range(newton_iters):
+            # ds/df = sum_k a_k b_k sigmoid(b_k f + c_k) > 0
+            ds = torch.sum(a * b * torch.sigmoid(self._mixture_args(f)),
+                           dim=-1)
+            step = (self.scale(f) - target) / torch.clamp(ds, min=1e-8)
+            f = f - torch.clamp(step, min=-5.0, max=5.0)
+        return f
+
+    def neg_log_prob_hessian(self, y, f):
+        """Exact per-datum ``-d^2 log p(y | f) / df^2``, by autodiff:
+        ``torch.func.grad`` twice under ``torch.func.vmap`` over the data.
+        (The reference hand-derived the cv curvature and got it wrong.)"""
+        f, y = torch.broadcast_tensors(f, y)
+        shape = f.shape
+        raws = [] if self.param == "exp" else [
+            t[..., None, :].expand(*shape, self.K).reshape(-1, self.K)
+            for t in (self.raw_a, self.raw_b, self.raw_c)]
+        lik = self
+
+        def nlp(ff, yy, *raw):
+            if raw:  # one datum's cv scale from its own triplets
+                ra, rb, rc = raw
+                s = torch.sum(softplus(lik.b_constraint.forward(rb) * ff
+                                       + lik.c_constraint.forward(rc))
+                              * lik.a_constraint.forward(ra))
+                s = torch.clamp(s, min=1e-3)
+            else:
+                s = exp_scale(ff)
+            return 0.5 * (yy / s) ** 2 + torch.log(s)
+
+        hess = torch.func.vmap(torch.func.grad(torch.func.grad(nlp)))
+        return hess(f.reshape(-1), y.reshape(-1), *raws).reshape(shape)
+
+    def laplace_inv_hessian(self, y, f):
+        """The Laplace init's clamped inverse curvature: the Hessian
+        floored at 1e-3, its inverse clipped to [1e-4, 1e3]."""
+        hess = self.neg_log_prob_hessian(y, f)
+        return torch.clamp(1.0 / torch.clamp(hess, min=1e-3), min=1e-4,
+                           max=1000.0)
 
     def expected_log_prob(self, y, mean, var,
                           num_locs: int = DEFAULT_NUM_LOCS,
                           method: str | None = None):
         """``E_{f ~ N(mean, var)}[log p(y | f)]``.
 
-        ``method=None`` or ``"analytic"``: the closed form (lognormal
-        moments) ``-y^2/2 e^{-2 mean + 2 var} - mean - log(2 pi)/2``, the
-        exponent capped at 80.  ``"quadrature"``: the reference's
-        ``num_locs``-node Gauss–Hermite term (kernel K3 on CUDA tensors).
-        The two differ below float32 resolution outside the clamp regions
-        (``scale >= 1e-3``, ``f <= 80``)."""
+        ``method=None`` is the closed form for ``"exp"`` and the
+        ``num_locs``-node Gauss–Hermite sum for ``"cv"``, which has no
+        closed form.  ``"analytic"`` (exp only): the lognormal moments
+        ``-y^2/2 e^{-2 mean + 2 var} - mean - log(2 pi)/2``, the exponent
+        capped at 80.  ``"quadrature"``: the reference's GH term, for
+        ``"exp"`` by kernel K3 on CUDA tensors, for ``"cv"`` the plain
+        node sum (as the JAX package computes it, outside any kernel).
+        The two exp forms differ below float32 resolution outside the
+        clamp regions (``scale >= 1e-3``, ``f <= 80``)."""
         if method is None:
-            method = "analytic"
+            method = "analytic" if self.param == "exp" else "quadrature"
         if method == "analytic":
+            if self.param != "exp":
+                raise ValueError("analytic expected_log_prob exists only "
+                                 "for param='exp'")
             e = torch.exp(torch.clamp(-2.0 * mean + 2.0 * var, max=80.0))
             return -0.5 * y * y * e - mean - 0.5 * _LOG_2PI
         if method == "quadrature":
-            return gh_expected_log_prob(y, mean, var, num_locs)
+            if self.param == "exp":
+                return gh_expected_log_prob(y, mean, var, num_locs)
+            return expected_value(lambda f: self.log_prob(y, f), mean, var,
+                                  num_locs)
         raise ValueError("method must be None, 'analytic' or 'quadrature'")
 
     def expected_scale(self, mean, var, mc_samples: int | None = None,

@@ -1,5 +1,5 @@
-"""Closed-form algebra for Brownian (min) kernels (port of the slice's
-part of :mod:`volt_tpu.ops.brownian`).
+"""Closed-form algebra for Brownian (min) kernels (port of
+:mod:`volt_tpu.ops.brownian`).
 
 The vol-GP stage's spectral MLL needs the closed-form eigensystem of the
 integer min-matrix ``M[i, j] = min(i, j)`` (``i, j = 1..n``):
@@ -8,7 +8,9 @@ integer min-matrix ``M[i, j] = min(i, j)`` (``i, j = 1..n``):
     ``u_k[j] = 2/sqrt(2n+1) * sin((2k+1) j pi / (2n+1))``
 
 and the projection ``U^T y``, here one matrix product against the
-materialised basis.
+materialised basis.  The dense GPCV family's KL uses the Cholesky factor
+of ``min(x)``, ``L = T diag(sqrt(dx))`` with ``T`` the lower-ones matrix:
+its solves are differences, its log-determinant ``sum log dx``.
 """
 
 from __future__ import annotations
@@ -24,6 +26,11 @@ __all__ = [
     "min_kernel_spectrum",
     "min_kernel_project",
     "PROJECT_MAX_N",
+    "bm_increments",
+    "bm_solve_lower",
+    "bm_solve_upper",
+    "bm_logdet",
+    "bm_kl_against_prior",
 ]
 
 # Largest n the projection takes: the materialised basis is n^2 floats
@@ -86,3 +93,62 @@ def min_kernel_project(y, axis: int = -1):
             "torch.fft transform for n > 4096)")
     _, u, _ = min_kernel_spectrum(n, y.dtype, y.device)
     return torch.movedim(torch.matmul(y, u), -1, axis)
+
+
+def _diff_prepend0(b):
+    return torch.diff(b, dim=-1, prepend=torch.zeros_like(b[..., :1]))
+
+
+def bm_increments(x):
+    """``dx_j = x_j - x_{j-1}`` with ``x_{-1} = 0`` (must be positive)."""
+    return _diff_prepend0(x)
+
+
+def bm_solve_lower(x, b, axis: int = -1):
+    """``L^{-1} b`` for ``L = chol(min(x))`` along ``axis`` of ``b``: O(n)."""
+    b = torch.movedim(b, axis, -1)
+    out = _diff_prepend0(b) / torch.sqrt(bm_increments(x))
+    return torch.movedim(out, -1, axis)
+
+
+def bm_solve_upper(x, b, axis: int = -1):
+    """``L^{-T} b``: the backward difference of ``b / sqrt(dx)``."""
+    b = torch.movedim(b, axis, -1)
+    scaled = b / torch.sqrt(bm_increments(x))
+    out = scaled - torch.cat([scaled[..., 1:], torch.zeros_like(
+        scaled[..., :1])], dim=-1)
+    return torch.movedim(out, -1, axis)
+
+
+def bm_logdet(x):
+    """``logdet min(x) = sum log dx``."""
+    return torch.sum(torch.log(bm_increments(x)), dim=-1)
+
+
+def bm_kl_against_prior(x, vol, mean_q, chol_q, mean_p, jitter: float = 1e-6):
+    """``KL(N(mean_q, Cq Cq^T) || N(mean_p, vol * min(x)))``, O(n^2).
+
+    The prior's solves are the closed-form differences; the only O(n^2)
+    work is differencing the columns of ``Cq``.  ``vol`` is ``(..., 1)``
+    (the kernel parameter's shape) or a float.  On a grid starting at
+    ``x_0 = 0`` the prior is singular; the increments are floored at
+    ``jitter / vol``, which gives the first point the ``jitter`` marginal
+    variance the dense path's jitter ladder would.  ``log|Cq|`` takes the
+    absolute diagonal, since Adam can drive a raw root's diagonal negative.
+    """
+    n = mean_q.shape[-1]
+    vol0 = (vol[..., 0] if torch.is_tensor(vol) else
+            torch.tensor(vol, dtype=mean_q.dtype, device=mean_q.device))
+    dx = torch.maximum(bm_increments(x), (jitter / vol0)[..., None])
+    sqrt_dx = torch.sqrt(dx)
+    chol_q = torch.tril(chol_q)
+    # L^{-1} Cq: a difference down each column
+    a = torch.diff(chol_q, dim=-2, prepend=torch.zeros_like(
+        chol_q[..., :1, :])) / sqrt_dx[..., :, None]
+    trace = torch.sum(a * a, dim=(-2, -1)) / vol0
+    d = _diff_prepend0(mean_p - mean_q) / sqrt_dx
+    quad = torch.sum(d * d, dim=-1) / vol0
+    logdet_p = n * torch.log(vol0) + torch.sum(torch.log(dx), dim=-1)
+    logdet_q = 2.0 * torch.sum(torch.log(torch.abs(
+        torch.diagonal(chol_q, dim1=-2, dim2=-1))), dim=-1)
+    return 0.5 * (trace + quad - n + logdet_p - logdet_q)

@@ -4,9 +4,13 @@
 factor, and while it fails add ``jitter * 10**i`` to the diagonal for
 ``i = 0..max_tries-1``.  Failure is read from ``torch.linalg.cholesky_ex``'s
 ``info`` (no exception, so nothing is caught on the card); as in the JAX
-package, one failed matrix retries the whole batch, and a factor that
-still fails comes back NaN in its lower triangle.  Its backward is the
-standard Cholesky adjoint of the factor the ladder produced.
+package called on a batch, one failed matrix retries the whole batch, and
+a factor that still fails comes back NaN in its lower triangle.  With
+``per_lane=True`` each matrix of the batch climbs its own ladder and only
+the failed ones are refactored: what ``jax.vmap`` of the JAX function
+gives, as in the JAX pipeline, which runs one asset's program a lane.
+Its backward is the standard Cholesky adjoint of the factor the ladder
+produced.
 """
 
 from __future__ import annotations
@@ -53,10 +57,31 @@ def _jitter_ladder(a, base_jitter: float, max_tries: int):
     return chol
 
 
+def _jitter_ladder_per_lane(a, base_jitter: float, max_tries: int):
+    """The ladder of each matrix of the batch on its own: a lane keeps the
+    first factor of ``a, a + j I, a + 10 j I, ...`` that succeeds."""
+    n = a.shape[-1]
+    flat = a.reshape(-1, n, n)
+    chol, _ = _factor(flat)
+    diag = torch.diagonal(chol, dim1=-2, dim2=-1)
+    bad = ~torch.all(torch.isfinite(diag) & (diag > 0), dim=-1)
+    for i in range(max_tries):
+        idx = torch.nonzero(bad).flatten()
+        if idx.numel() == 0:
+            break
+        retry, _ = _factor(add_jitter(flat[idx], base_jitter * 10.0 ** i))
+        chol = chol.index_copy(0, idx, retry)
+        rdiag = torch.diagonal(retry, dim1=-2, dim2=-1)
+        bad = bad.index_copy(0, idx, ~torch.all(
+            torch.isfinite(rdiag) & (rdiag > 0), dim=-1))
+    return chol.reshape(a.shape)
+
+
 class _PSDSafeCholesky(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, a, base_jitter, max_tries):
-        chol = _jitter_ladder(a, base_jitter, max_tries)
+    def forward(ctx, a, base_jitter, max_tries, per_lane):
+        ladder = _jitter_ladder_per_lane if per_lane else _jitter_ladder
+        chol = ladder(a, base_jitter, max_tries)
         ctx.save_for_backward(chol)
         return chol
 
@@ -68,14 +93,16 @@ class _PSDSafeCholesky(torch.autograd.Function):
         m = m - 0.5 * torch.diag_embed(torch.diagonal(m, dim1=-2, dim2=-1))
         x1 = torch.linalg.solve_triangular(chol.mT, m, upper=True)
         x2 = torch.linalg.solve_triangular(chol, x1, upper=False, left=False)
-        return 0.5 * (x2 + x2.mT), None, None
+        return 0.5 * (x2 + x2.mT), None, None, None
 
 
-def psd_safe_cholesky(a, jitter: float | None = None, max_tries: int = 3):
+def psd_safe_cholesky(a, jitter: float | None = None, max_tries: int = 3,
+                      per_lane: bool = False):
     """Lower Cholesky factor with the deterministic jitter ladder
-    (``jitter=None``: 1e-6 for float32, 1e-8 for float64)."""
+    (``jitter=None``: 1e-6 for float32, 1e-8 for float64), climbed by the
+    whole batch, or with ``per_lane`` by each matrix alone."""
     base = _default_jitter(a.dtype) if jitter is None else float(jitter)
-    return _PSDSafeCholesky.apply(a, base, int(max_tries))
+    return _PSDSafeCholesky.apply(a, base, int(max_tries), bool(per_lane))
 
 
 def solve_lower_triangular(chol, b):

@@ -1,5 +1,6 @@
 from .pipeline import (PipelineConfig, fit_forecast, fit_forecast_batch,
                        warm_start)
+from .pricing import price_options_batch
 
 __all__ = ["PipelineConfig", "fit_forecast", "fit_forecast_batch",
-           "warm_start"]
+           "warm_start", "price_options_batch"]

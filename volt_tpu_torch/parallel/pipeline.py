@@ -3,8 +3,8 @@
 
 ``fit_forecast_batch`` runs, for ``B`` assets at once on one device:
 
-1. GPCV: Adam (or NGVI) on the tridiagonal-precision ELBO -> the vol
-   path;
+1. GPCV: Adam (or NGVI) on the tridiagonal-precision ELBO, or Adam on
+   the dense family's (``gpcv_q="full"``) -> the vol path;
 2. the vol GP: Adam on the spectral (or Kalman) MLL of ``log(vol)``;
 3. the Volt data model: Adam on the Kalman MLL (kernel S1 on CUDA), with
    a Magpie train mean (kernel K1 on CUDA) computed once outside the loss;
@@ -12,7 +12,9 @@
 
 JAX ``vmap``s one asset's program over the batch; here every tensor has a
 leading asset axis and each Adam loop minimises the summed per-asset
-losses, which updates every asset exactly as its own Adam would.
+losses, which updates every asset exactly as its own Adam would.  The
+dense GPCV init's Cholesky jitter ladders run per asset, as each asset's
+own program does under ``vmap``.
 """
 
 from __future__ import annotations
@@ -38,9 +40,8 @@ __all__ = ["PipelineConfig", "fit_forecast", "fit_forecast_batch",
 @dataclasses.dataclass(frozen=True)
 class PipelineConfig:
     """Static configuration of the pipeline (the JAX package's fields and
-    defaults).  The port runs the BM kernel and the tridiagonal GPCV;
-    ``kernel="fbm"`` and ``gpcv_q="full"`` raise ``NotImplementedError``
-    naming the ROADMAP item that ports them."""
+    defaults).  The port runs the BM kernel; ``kernel="fbm"`` raises
+    ``NotImplementedError`` naming the ROADMAP item that ports it."""
 
     gpcv_iters: int = 300
     vol_iters: int = 300
@@ -65,7 +66,7 @@ class PipelineConfig:
 # (field, the port's values, the values not ported yet, ROADMAP item)
 _FIELDS = (
     ("kernel", ("bm",), ("fbm",), "slice C, item 16"),
-    ("gpcv_q", ("tridiag",), ("full",), "slice B, item 11"),
+    ("gpcv_q", ("tridiag", "full"), (), None),
     ("gpcv_opt", ("adam", "ngvi"), (), None),
     ("vol_mll", ("spectral", "kalman"), (), None),
     ("output", ("samples", "quantiles"), (), None),
@@ -73,9 +74,22 @@ _FIELDS = (
 
 
 def _resolve_config(config: PipelineConfig) -> PipelineConfig:
-    """Reject what the port cannot run: ``ValueError`` for values the JAX
-    package does not know either, ``NotImplementedError`` for the parts
-    not ported yet."""
+    """The JAX package's downgrades (a non-BM kernel takes the dense GPCV
+    family and the Kalman vol MLL; NGVI needs the BM kernel and the
+    tridiagonal family, else Adam), then reject what the port cannot run:
+    ``ValueError`` for values the JAX package does not know either,
+    ``NotImplementedError`` for the parts not ported yet."""
+    if config.kernel != "bm":
+        repl = {}
+        if config.gpcv_q == "tridiag":
+            repl["gpcv_q"] = "full"
+        if config.vol_mll == "spectral":
+            repl["vol_mll"] = "kalman"
+        if repl:
+            config = dataclasses.replace(config, **repl)
+    if config.gpcv_opt == "ngvi" and (config.kernel != "bm"
+                                      or config.gpcv_q != "tridiag"):
+        config = dataclasses.replace(config, gpcv_opt="adam")
     for field, ours, others, item in _FIELDS:
         value = getattr(config, field)
         if value in others:
@@ -160,7 +174,7 @@ def fit_forecast_batch(generator, train_x, train_ys, test_x,
     yy = scaled_returns(train_x, train_ys)
     gpcv = GPCVModel(kernel=config.kernel, num_locs=config.num_locs,
                      q=config.gpcv_q)
-    start(gpcv, "gpcv", lambda: gpcv.init(train_x, yy))
+    start(gpcv, "gpcv", lambda: gpcv.init(train_x, yy, per_lane=True))
     gpcv_losses = _fit_gpcv(gpcv, train_x, yy, config.gpcv_iters,
                             config.gpcv_lr, config.gpcv_opt)
     with torch.no_grad():
@@ -270,10 +284,11 @@ def warm_start(aux, shift: int = 0, n: int | None = None):
     ``shift=0`` re-seeds a fit of the same window.  ``shift>0`` slides the
     window forward ``shift`` ticks at the same length (``n``, the return
     grid's length, must be given): per-datum GPCV leaves shift with the
-    window, the new tail starting from the last entry; the boundary entry
-    of ``q_log_d`` (the bidiagonal factor's last row) stays at the
-    boundary; scalar hyperparameters and the vol/data-model parameters
-    carry over unchanged.
+    window, the new tail starting from the last entry; the dense root
+    ``chol_variational_covar`` shifts along both data axes, then is
+    re-``tril``'d; the boundary entry of ``q_log_d`` (the bidiagonal
+    factor's last row) stays at the boundary; scalar hyperparameters and
+    the vol/data-model parameters carry over unchanged.
     """
     gpcv = dict(aux["gpcv_params"])
     if shift:
@@ -283,7 +298,11 @@ def warm_start(aux, shift: int = 0, n: int | None = None):
         for k, v in gpcv.items():
             if not torch.is_tensor(v) or v.dim() == 0:
                 continue
-            if k == "q_log_d" and v.shape[-1] == n:
+            if k == "chol_variational_covar":
+                # by name: its last axis is also n
+                cols = _shift_tail(v, shift)
+                gpcv[k] = torch.tril(_shift_tail(cols.mT, shift).mT)
+            elif k == "q_log_d" and v.shape[-1] == n:
                 interior = _shift_tail(v[..., :-1], shift)
                 gpcv[k] = torch.cat([interior, v[..., -1:]], dim=-1)
             elif v.shape[-1] in (n, n - 1):  # per-datum vectors

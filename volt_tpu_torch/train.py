@@ -2,7 +2,9 @@
 package's defaults and the reference-style aliases.
 
 * ``learn_gpcv``       — stage 1: the tridiagonal GPCV by NGVI (default) or
-                         Adam(0.01); returns the predicted scale;
+                         Adam(0.01), or the dense family by Adam; returns
+                         the predicted scale (``learn_gpcv_sparse``: on
+                         inducing points, for long series);
 * ``train_vol_model``  — stage 2: Adam(0.01) on the vol GP's spectral MLL
                          (equispaced grids) or Kalman MLL (any grid);
 * ``train_data_model`` — stage 3: Adam(0.1) on the Volt MLL, log-linear
@@ -30,6 +32,7 @@ from .models.bmgp import BMGP, BMGPState
 from .models.gpcv import GPCVModel, GPCVState
 from .models.volt import VoltGP, VoltState, make_mean
 from .ops.tridiag import brownian_noise_mll_kalman
+from .optim import Adam
 
 __all__ = [
     "scaled_returns",
@@ -68,15 +71,15 @@ def adam_loop(module, loss_fn, iters: int, lr: float):
 
     One Adam on the summed losses equals one Adam per asset: the
     gradient of the sum w.r.t. an asset's parameters is that asset's own
-    gradient, and Adam updates elementwise (optax's defaults: b1 0.9,
-    b2 0.999, eps 1e-8 outside the square root).  Every op of the losses
-    is per asset, so a non-finite asset leaves the others untouched.
+    gradient, and Adam updates elementwise (optax's defaults and
+    arithmetic, :class:`volt_tpu_torch.optim.Adam`).  Every op of the
+    losses is per asset, so a non-finite asset leaves the others
+    untouched.
     """
-    opt = torch.optim.Adam(module.parameters(), lr=lr, betas=(0.9, 0.999),
-                           eps=1e-8)
+    opt = Adam(module.parameters(), lr, iters)
     losses = []
     for _ in range(iters):
-        opt.zero_grad(set_to_none=True)
+        opt.zero_grad()
         loss = loss_fn()
         loss.sum().backward()
         opt.step()
@@ -111,16 +114,23 @@ def learn_gpcv(train_x, train_y, train_iters: int = 1000,
                return_model: bool = False, generator=None,
                mc_scale_samples=None, q: str | None = None,
                param: str = "exp", opt: str | None = None,
-               ell_method: str | None = None, noise=None):
+               ell_method: str | None = None, noise=None,
+               init_params=None):
     """Infer the volatility path from prices ``train_y`` (one longer than
     the return grid ``train_x``).  Returns the predicted scale, and with
     ``return_model`` the fitted :class:`GPCVState`.
 
-    ``q`` defaults to ``"tridiag"`` and ``opt`` to ``"ngvi"`` (``"adam"``
-    is the reference's single-Adam loop); ``ell_method="quadrature"``
-    trains on the reference's GH-75 term.  ``mc_scale_samples`` estimates
-    the scale by Monte Carlo from ``generator`` (or the standard normals
-    ``noise``) instead of Gauss–Hermite.
+    ``q`` defaults to ``"tridiag"`` (``"full"`` is the reference's dense
+    family) and ``opt`` to ``"ngvi"`` for it (``"adam"``, the reference's
+    single-Adam loop, is the only choice for ``"full"``); ``param`` is
+    the likelihood (``"exp"`` or ``"cv"``); ``ell_method="quadrature"``
+    trains the exp likelihood on the reference's GH-75 term.
+    ``generator`` draws the cv triplets' init and, with
+    ``mc_scale_samples``, the Monte-Carlo scale estimate (or the standard
+    normals ``noise``) instead of Gauss–Hermite.  ``init_params``
+    (``{"likelihood": {"raw_a": ..., ...}}``, e.g. the JAX package's
+    draw through :mod:`volt_tpu_torch.convert`) replaces the cv triplets'
+    random init before the Laplace init.
     """
     if q is None:
         q = "tridiag" if kernel == "bm" else "full"
@@ -132,7 +142,9 @@ def learn_gpcv(train_x, train_y, train_iters: int = 1000,
         raise ValueError("opt='ngvi' requires the tridiag family")
     yy = scaled_returns(train_x, train_y)
     module = GPCVModel(kernel=kernel, param=param, q=q,
-                       ell_method=ell_method).init(train_x, yy)
+                       ell_method=ell_method).init(
+        train_x, yy, generator,
+        likelihood_params=(init_params or {}).get("likelihood"))
     losses = _fit_gpcv(module, train_x, yy, train_iters, lr, opt)
     if printing:
         _print_losses(losses, train_iters)
@@ -142,8 +154,30 @@ def learn_gpcv(train_x, train_y, train_iters: int = 1000,
     return (pred_scale, state) if return_model else pred_scale
 
 
-def learn_gpcv_sparse(*args, **kwargs):
-    _not_ported("learn_gpcv_sparse", "slice B, item 11")
+def learn_gpcv_sparse(train_x, train_y, num_inducing: int = 256,
+                      train_iters: int = 1000, kernel: str = "bm",
+                      lr: float = 0.01, return_model: bool = False,
+                      generator=None):
+    """Sparse-GPCV volatility inference for long series: the dense family
+    on ``m = num_inducing`` inducing points (the train grid at the
+    rounded, deduplicated ``linspace(0, n-1, m)``), Adam on the SVGP ELBO,
+    O(n m^2) a step.  Returns the predicted scale on the whole train grid,
+    and with ``return_model`` a :class:`GPCVState` carrying the inducing
+    grid, whose ``predicted_scale()`` gives the same values."""
+    yy = scaled_returns(train_x, train_y)
+    n = train_x.shape[-1]
+    m = min(num_inducing, n)
+    idx = np.unique(np.round(np.linspace(0, n - 1, m)).astype(np.int64))
+    inducing_x = train_x[..., torch.as_tensor(idx, device=train_x.device)]
+    module = GPCVModel(kernel=kernel).init_sparse(train_x, inducing_x, yy,
+                                                  generator)
+    adam_loop(module, lambda: -module.elbo_sparse(train_x, inducing_x, yy),
+              train_iters, lr)
+    state = GPCVState(module=module, train_x=train_x, targets=yy,
+                      inducing_x=inducing_x)
+    with torch.no_grad():
+        pred_scale = state.predicted_scale()
+    return (pred_scale, state) if return_model else pred_scale
 
 
 def learn_gpcv_multitask(*args, **kwargs):
