@@ -16,16 +16,19 @@ Phases, each printed with its time; any failure exits non-zero:
 3. kernels against their plain PyTorch versions on the card, float32, at
    the shapes their paths give them, timed with CUDA events: each kernel
    per call through its wrapper (``ms``: 20 back-to-back calls) and on
-   the device alone (``device_ms``: 20 launches captured in a CUDA graph
-   and replayed); the plain versions and the library call per call, the
+   the device alone (``device_ms``: launches captured in a CUDA graph
+   and replayed, cycling through copies of the inputs that together hold
+   twice the 50 MB L2, so that each launch reads from HBM as ``bound_ms``
+   assumes); the plain versions and the library call per call, the
    library call also on the device alone (the plain Kalman loop: one call
    per run):
    K1 (EWMA filter, a recurrence run in float64: max abs error <= 1e-6
    max|y| from a float64 run of the plain conv1d and <= 1e-5 max|y| from
    the float32 run, at nine shapes and k; timed at (64, 999) with k=300,
-   100 and 25 and at (500, 999) with k=300, cuDNN's conv1d beside it); S1 (Kalman MLL forward
+   100 and 25, at (500, 999) with k=300 and at the multitask path's
+   (505, 999) with k=25, cuDNN's conv1d beside it); S1 (Kalman MLL forward
    and adjoint, a chunked scan computed in float64 inside, at (64, 999),
-   (1, 999), (3, 1), (5, 33), (500, 999) and (16, 16000), by
+   (1, 999), (3, 1), (5, 33), (500, 999), (505, 999) and (16, 16000), by
    ``ops.tridiag.kalman_agreement``: value and final state rtol 1e-5 from
    a float64 run of the plain loop, since on long rows the float32 loop's
    own rounding passes that tolerance; gradients rtol 1e-4, atol 1e-6 of
@@ -86,22 +89,45 @@ Phases, each printed with its time; any failure exits non-zero:
    every ``ok``; K1 and S1 launched.  Prints the stage seconds, the
    payoff grid's, rollout path-steps per second, the peak memory,
    ``calibration(percentiles)`` and the mean CRPS over 64 assets;
-11. agreement on a small input: the card's run equals the CPU run (the
+11. ``fbm_path``: ``fit_forecast_batch(PipelineConfig(kernel="fbm"))`` on
+   phase 4's series with the defaults (quantiles), which resolve to the
+   dense GPCV family, the dense FBM vol MLL through the increment-domain
+   factor and the dense vol sampler.  Checks: every ``ok``, a finite fan
+   non-decreasing across levels, finite Hurst parameters (printed), the
+   vol band, K1 and S1 launched; prints the stage seconds and the peak
+   memory;
+12. ``multitask``: ``fit_forecast_multitask`` at
+   ``tools/bench_refit_multitask.py``'s defaults (505 SABR series, 999
+   returns, H=100, 100 paths, 300 steps a stage, quantiles), cold, then a
+   warm refit from ``warm_start_multitask(aux, shift=1)`` with 30 steps a
+   stage on the window slid by one tick.  Checks each time: every ``ok``,
+   the fan, K1 and S1 launched; the warm vol paths within a median 0.1
+   (relative) of the cold fit's on the shared ticks; prints the stage
+   seconds and the peak memory;
+13. ``long_main_path``: ``fit_forecast_batch`` with the defaults at B=16,
+   n=16000 on the simulation's own step (the vol stage's projection is the
+   FFT).  Checks: finite paths, every ``ok``, the vol band, K1 and S1
+   launched;
+14. agreement on a small input: the card's run equals the CPU run (the
    plain versions, which the repository's tests hold against the JAX
    package): the main path within the pipeline parity tolerances; the
    dense family's Laplace init on ``S = R R^T`` (1e-3 of its largest
    entry; cuSOLVER's and LAPACK's jitter ladders may part at the edge of
-   float32) and its pipeline; a cv fit (rtol 1e-3); and
+   float32) and its pipeline; a cv fit (rtol 1e-3);
    ``price_options_batch`` (values rtol 2e-3, atol 1e-3 of the largest
-   strike; percentiles within 2 / S).
+   strike; percentiles within 2 / S); the FBM pipeline (rtol 1e-2, the
+   dense family's); the multitask pipeline (losses and vols rtol 1e-3,
+   the fan 2e-3 / 1e-3); the FFT projection at n=16000 against a float64
+   CPU run (2e-6 of max|out|).
 
 Every phase prints its times with the card's name and power limit.  The
 vol band: recovered vol / true SABR vol, the median over series, inside
-(0.3, 3.5).  Launch counts are reset before each of phases 4-10 and read
+(0.3, 3.5).  Launch counts are reset before each of phases 4-13 and read
 after it; a kernel's ``launches`` is the count from the phase that drives
 its path, and ``launches_by_path`` its counts in the quantiles call of
-phase 4, in ``Volt().Train()`` alone (S1 must launch in both) and in
-``price_options_batch``.  The second-to-last
+phase 4, in ``Volt().Train()`` alone (S1 must launch in both), in
+``price_options_batch``, in ``fbm_path``, in the cold ``multitask`` fit
+and in ``long_main_path``.  The second-to-last
 line is a JSON object with each kernel's launches, error, times, bound
 (``bound_ms``: the largest of its bytes over 3.35 TB/s, its operations
 over the H100's peak for their type and its special functions over the
@@ -118,7 +144,8 @@ Two trees of the port against each other on one card::
 
 runs the named phases (``PHASES``: ``kernel_times``, ``kalman_times``,
 ``main_path``, ``gpcv_full``, ``gpcv_cv``, ``gpcv_sparse``,
-``option_pricing``; a phase named twice runs twice, the first cold) in
+``option_pricing``, ``fbm_path``, ``multitask``, ``long_main_path``; a
+phase named twice runs twice, the first cold) in
 four fresh processes, in the trees parent, this one, this one, parent,
 each with its own package and kernels and this file's phases and
 timers.  It prints one JSON line per process and writes the
@@ -196,18 +223,37 @@ def bound_ms(nbytes, ops, ops_per_s, sfu_ops=0):
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def device_ms(torch, fn, reps=5, calls=20):
-    """ms per call on the device alone: ``calls`` calls captured in one CUDA
+# Input copies that device_ms rotates through: twice the H100's 50 MB L2,
+# so that a launch finds its inputs in HBM, as bound_ms assumes
+L2_BYTES = 50e6
+ROTATE_BYTES = 2 * L2_BYTES
+
+
+def _nbytes(args):
+    return sum(a.numel() * a.element_size() for a in args
+               if hasattr(a, "element_size"))
+
+
+def device_ms(torch, fn, *args, reps=5, calls=20):
+    """ms per call on the device alone: ``fn(*args)`` called in one CUDA
     graph and replayed, CUDA events around each replay, the median over
     ``reps`` replays after a warm-up one.  Unlike ``cuda_ms`` it leaves out
     the host's work per call (the wrapper's checks and allocations and the
-    ``ctypes`` call), which is larger than a small kernel."""
-    fn()
+    ``ctypes`` call), which is larger than a small kernel.  The graph's
+    launches cycle through copies of the tensor ``args`` that together
+    hold at least ``ROTATE_BYTES`` (twice the L2), ``max(calls, copies)``
+    launches a replay: each launch reads its inputs from HBM, not from an
+    L2 that a replay of the same buffers would leave warm."""
+    copies = max(1, -(-int(ROTATE_BYTES) // max(1, _nbytes(args))))
+    sets = [args] + [tuple(a.clone() if hasattr(a, "clone") else a
+                           for a in args) for _ in range(copies - 1)]
+    launches = max(calls, copies)
+    fn(*args)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        for _ in range(calls):
-            fn()
+        for i in range(launches):
+            fn(*sets[i % copies])
     times = []
     for _ in range(reps + 1):
         start = torch.cuda.Event(enable_timing=True)
@@ -216,7 +262,8 @@ def device_ms(torch, fn, reps=5, calls=20):
         graph.replay()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end) / calls)
+        times.append(start.elapsed_time(end) / launches)
+    del graph, sets
     return statistics.median(times[1:])
 
 
@@ -227,9 +274,10 @@ def _log_prices(torch, g, shape):
 
 
 # K1's timed shapes and k: the main path's (64, 999) at its k=300, at the
-# bench's k=100 and at a small k, and B=500 (ROADMAP item 9)
+# bench's k=100 and at a small k, B=500 (ROADMAP item 9), and the
+# multitask path's (505, 999) at its k=25
 EWMA_TIMED = [((64, 999), 300), ((64, 999), 100), ((64, 999), 25),
-              ((500, 999), 300)]
+              ((500, 999), 300), ((505, 999), 25)]
 
 
 def check_ewma(torch):
@@ -287,9 +335,12 @@ def time_ewma(torch):
             torch, [lambda: ewma(y, k), lambda: _ewma_conv(y, k), conv],
             reps=11)
         rec = {"ms": ms,
-               "device_ms": device_ms(torch, lambda: ewma_filter_cuda(y, k)),
+               "device_ms": device_ms(
+                   torch, lambda a: ewma_filter_cuda(a, k), y),
                "plain_ms": plain_ms, "library_ms": library_ms,
-               "library_device_ms": device_ms(torch, conv)}
+               "library_device_ms": device_ms(
+                   torch, lambda a: torch.nn.functional.conv1d(a, taps),
+                   padded)}
         # reads y, writes the output; three float64 operations an output
         rec.update(bound_ms(4 * (rows * t + rows * (t + 1)), 3 * rows * t,
                             FP64_OPS_PER_S))
@@ -305,9 +356,11 @@ def time_ewma(torch):
 
 
 # S1's check shapes: the main path, the reference API, the edges, ROADMAP
-# item 9's B=500, and n=16000 (16 tiles of the kernel's carry)
-KALMAN_SHAPES = [(64, 999), (1, 999), (3, 1), (5, 33), (500, 999), (16, 16000)]
-KALMAN_TIMED = [(64, 999), (1, 999), (500, 999), (16, 16000)]
+# item 9's B=500, n=16000 (16 tiles of the kernel's carry; the
+# long_main_path phase) and the multitask path's T=505
+KALMAN_SHAPES = [(64, 999), (1, 999), (3, 1), (5, 33), (500, 999),
+                 (505, 999), (16, 16000)]
+KALMAN_TIMED = [(64, 999), (1, 999), (500, 999), (505, 999), (16, 16000)]
 
 
 def kalman_inputs(torch, vt, b, n):
@@ -387,16 +440,18 @@ def time_kalman(torch, vt):
         ones, zeros = torch.ones_like(s2c), torch.zeros_like(s2c)
         key = f"({b}, {n})"
 
-        def fwd():
-            return ttd.kalman_forward_cuda(delta, s2c, resid, save=True)
+        fwd_args = (delta, s2c, resid)
+        bwd_args = (delta, s2c, resid, saved[3], saved[4], ones, zeros,
+                    zeros)
 
-        def bwd():
-            return ttd.kalman_backward_cuda(delta, s2c, resid, saved[3],
-                                            saved[4], ones, zeros, zeros)
+        def fwd(*a):
+            return ttd.kalman_forward_cuda(*a, save=True)
 
-        for way, fn in (("forward", fwd), ("backward", bwd)):
-            times[way][key] = {"ms": cuda_ms(torch, fn),
-                               "device_ms": device_ms(torch, fn)}
+        bwd = ttd.kalman_backward_cuda
+        for way, fn, args in (("forward", fwd, fwd_args),
+                              ("backward", bwd, bwd_args)):
+            times[way][key] = {"ms": cuda_ms(torch, lambda: fn(*args)),
+                               "device_ms": device_ms(torch, fn, *args)}
         print(f"   S1 {key}: forward {times['forward'][key]['ms']:.4f} ms a "
               f"call, {times['forward'][key]['device_ms']:.4f} ms on the "
               f"device; backward {times['backward'][key]['ms']:.4f} ms a "
@@ -466,7 +521,7 @@ def check_volt_cov(torch):
     integral = vol_integral(x, 0.1 + 0.2 * torch.rand(
         64, 999, device="cuda", generator=g)).contiguous()
     ms = cuda_ms(torch, lambda: volt_covariance_cuda(integral))
-    dev_ms = device_ms(torch, lambda: volt_covariance_cuda(integral))
+    dev_ms = device_ms(torch, volt_covariance_cuda, integral)
     plain_ms = cuda_ms(torch, lambda: min_index_covariance(integral))
     gbs = 64 * 999 * 999 * 4 / (dev_ms * 1e-3) / 1e9
     print(f"   K2 (64, 999): kernel {ms:.4f} ms a call, {dev_ms:.4f} ms on "
@@ -560,25 +615,31 @@ def time_gh_ell(torch, shapes=((64, 999), (500, 999))):
         y, mu, s2 = (t.contiguous() for t in gh_inputs(torch, g, shape))
         cot = torch.randn(*shape, device="cuda", generator=g)
         count, nodes = y.numel(), 75
+        # each way: (the function, its tensor arguments)
         if fused:
             saved = tgh.gh_ell_forward_cuda(y, mu, s2, save=True)[1]
             ways = {
-                "forward": lambda: tgh.gh_ell_forward_cuda(y, mu, s2,
-                                                           save=True),
-                "backward": lambda: tgh.gh_ell_backward_cuda(
-                    y, mu, s2, cot, saved=saved),
-                "forward_no_save": lambda: tgh.gh_ell_forward_cuda(y, mu, s2)}
+                "forward": (lambda a, b, c: tgh.gh_ell_forward_cuda(
+                    a, b, c, save=True), (y, mu, s2)),
+                "backward": (lambda a, b, c, d, e: tgh.gh_ell_backward_cuda(
+                    a, b, c, d, saved=e), (y, mu, s2, cot, saved)),
+                "forward_no_save": (tgh.gh_ell_forward_cuda, (y, mu, s2))}
         else:
-            ways = {"forward": lambda: tgh.gh_ell_forward_cuda(y, mu, s2),
-                    "backward": lambda: tgh.gh_ell_backward_cuda(y, mu, s2,
-                                                                 cot)}
+            ways = {"forward": (tgh.gh_ell_forward_cuda, (y, mu, s2)),
+                    "backward": (tgh.gh_ell_backward_cuda,
+                                 (y, mu, s2, cot))}
 
-        def step():
-            ways["forward"]()
-            return ways["backward"]()
+        def step(a, b, c, d):
+            if fused:
+                e = tgh.gh_ell_forward_cuda(a, b, c, save=True)[1]
+                return tgh.gh_ell_backward_cuda(a, b, c, d, saved=e)
+            tgh.gh_ell_forward_cuda(a, b, c)
+            return tgh.gh_ell_backward_cuda(a, b, c, d)
 
-        rec = {way: {"ms": cuda_ms(torch, fn), "device_ms": device_ms(torch, fn)}
-               for way, fn in (*ways.items(), ("step", step))}
+        ways["step"] = (step, (y, mu, s2, cot))
+        rec = {way: {"ms": cuda_ms(torch, lambda: fn(*args)),
+                     "device_ms": device_ms(torch, fn, *args)}
+               for way, (fn, args) in ways.items()}
         # bytes: the forward reads y, mu, s2 and the nodes and writes E and
         # the three node sums; the backward reads s2, the cotangent and the
         # sums and writes three gradients.  FP32 operations per node,
@@ -599,9 +660,10 @@ def time_gh_ell(torch, shapes=((64, 999), (500, 999))):
             rec["split_device_ms"] = {}
             for split_log2 in range(4):
                 rec["split_device_ms"][f"{2 ** split_log2} lanes"] = device_ms(
-                    torch, lambda: native.launch(
-                        "volt_gh_ell_forward", y, mu, s2, nodes_t, out, saved,
-                        count, nodes, split_log2, device=y.device))
+                    torch, lambda a, b, c: native.launch(
+                        "volt_gh_ell_forward", a, b, c, nodes_t, out, saved,
+                        count, nodes, split_log2, device=y.device),
+                    y, mu, s2)
         key = str(shape)
         times[key] = rec
         print(f"   K3 {key}: " + "; ".join(
@@ -943,6 +1005,180 @@ def run_gpcv_sparse(torch, vt, native, dev="cuda", n=16000, m=256,
                                    "inducing": int(state.inducing_x.numel())}
 
 
+def _peak_gib(torch, dev):
+    return (torch.cuda.max_memory_allocated() / 2 ** 30 if dev == "cuda"
+            else float("nan"))
+
+
+def _reset_peak(torch, dev):
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _check_fan(torch, what, fan, shape):
+    if tuple(fan.shape) != shape or not torch.isfinite(fan).all():
+        fail(f"{what}: fan shape {tuple(fan.shape)} or non-finite fan")
+    if not bool((fan.diff(dim=-2) >= 0).all()):
+        fail(f"{what}: fan decreases across quantile levels")
+
+
+def _check_launched(what, launches, dev):
+    for sym in ("volt_ewma_filter", "volt_kalman_forward",
+                "volt_kalman_backward"):
+        if dev == "cuda" and launches.get(sym, 0) < 1:
+            fail(f"{what}: {sym} was not launched")
+
+
+def run_fbm_path(torch, vt, native, dev="cuda", b=64, n=999, h=100,
+                 iters=300, nsample=1000):
+    """``fit_forecast_batch(PipelineConfig(kernel="fbm"))`` on the main
+    path's series with the defaults (quantiles): it resolves to the dense
+    GPCV family, the dense FBM vol MLL (the increment-domain factor) and
+    the dense vol sampler."""
+    from volt_tpu_torch.parallel import PipelineConfig, fit_forecast_batch
+    from volt_tpu_torch.parallel.pipeline import _resolve_config
+
+    f, v_true = vt.data.sabr_paths(steps=n + 1, seed=0, n_paths=b)
+    x, test_x = grids(torch, n, h, dev)
+    ys = torch.tensor(f, device=dev)
+    cfg = PipelineConfig(kernel="fbm", output="quantiles", gpcv_iters=iters,
+                         vol_iters=iters, data_iters=iters, nsample=nsample)
+    resolved = _resolve_config(cfg)
+    if (resolved.gpcv_q, resolved.vol_mll) != ("full", "kalman"):
+        fail(f"fbm_path: resolved to {resolved}")
+    g = torch.Generator(device=dev).manual_seed(8)
+    _reset_peak(torch, dev)
+    native.launches.clear()
+    t0 = time.perf_counter()
+    fan, aux = fit_forecast_batch(g, x, ys, test_x, cfg)
+    _sync(torch, dev)
+    total = time.perf_counter() - t0
+    launches = dict(native.launches)
+    peak = _peak_gib(torch, dev)
+    stages = {k: round(v, 4) for k, v in aux["stage_seconds"].items()}
+    hurst = torch.sigmoid(aux["vol_params"]["kernel"]["raw_vol"][..., 0])
+    q = torch.quantile(hurst.cpu(), torch.tensor([0.0, 0.25, 0.5, 0.75,
+                                                  1.0])).tolist()
+    print(f"   kernel='fbm' call: {total:.3f} s; stages (s) {stages}; peak "
+          f"{peak:.2f} GiB allocated ({CARD})")
+    print(f"   recovered Hurst parameters, min/quartiles/max over series: "
+          f"{[round(v, 4) for v in q]}")
+    print(f"   ok lanes {int(aux['ok'].sum())} of {b}; kernel launches in "
+          f"the call: {launches}")
+    _check_fan(torch, "fbm_path", fan, (b, len(cfg.quantile_levels), h))
+    if not bool(aux["ok"].all()):
+        fail(f"fbm_path: ok flags {aux['ok'].tolist()}")
+    if not bool(torch.isfinite(hurst).all()):
+        fail("fbm_path: non-finite Hurst parameters")
+    _check_launched("fbm_path", launches, dev)
+    ratio = check_vol_band(aux["vol"], v_true, "fbm_path")
+    return launches, {"s": total, "stages": stages, "peak_gib": peak,
+                      "ok": int(aux["ok"].sum()), "vol_ratio": ratio,
+                      "hurst_quantiles": q}
+
+
+def run_multitask(torch, vt, native, dev="cuda", t=505, ntrain=1000, h=100,
+                  nsample=100, iters=300, warm_iters=30, shift=1):
+    """``fit_forecast_multitask`` at ``tools/bench_refit_multitask.py``'s
+    defaults (505 SABR series, seed 0, 999 returns on a grid from dt, H=100,
+    100 paths, 300 steps a stage, quantiles), cold; then a warm refit from
+    ``warm_start_multitask(aux, shift=1)`` with 30 steps a stage on the
+    window slid by one tick.  The warm-against-cold difference of the vol
+    paths is taken on the ticks the two windows share."""
+    from volt_tpu_torch.parallel import (MultitaskPipelineConfig,
+                                         fit_forecast_multitask,
+                                         warm_start_multitask)
+
+    n = ntrain - 1
+    f, _ = vt.data.sabr_paths(steps=ntrain + shift, seed=0, n_paths=t)
+    x, test_x = grids(torch, n, h, dev, start=1)
+    prices = torch.tensor(f, device=dev)
+    base = dict(nsample=nsample, output="quantiles", k=min(25, max(2, n // 4)))
+    runs = {}
+    aux = None
+    for name, window, steps in (("cold", prices[:, :ntrain], iters),
+                                ("warm", prices[:, shift:ntrain + shift],
+                                 warm_iters)):
+        cfg = MultitaskPipelineConfig(gpcv_iters=steps, vol_iters=steps,
+                                      data_iters=steps, **base)
+        init = None if aux is None else warm_start_multitask(aux, shift, n)
+        g = torch.Generator(device=dev).manual_seed(9)
+        _reset_peak(torch, dev)
+        native.launches.clear()
+        t0 = time.perf_counter()
+        fan, out_aux = fit_forecast_multitask(g, x, window, test_x, cfg,
+                                              init_params=init)
+        _sync(torch, dev)
+        total = time.perf_counter() - t0
+        launches = dict(native.launches)
+        peak = _peak_gib(torch, dev)
+        stages = {k: round(v, 4) for k, v in
+                  out_aux["stage_seconds"].items()}
+        rec = {"s": total, "stages": stages, "peak_gib": peak,
+               "ok": int(out_aux["ok"].sum()), "launches": launches}
+        if aux is not None:
+            rec["vol_rel_to_cold"] = median_rel(
+                out_aux["vols"][:, :-shift], aux["vols"][:, shift:])
+        print(f"   {name} T={t}, n={n}, {steps} steps a stage: {total:.3f} "
+              f"s; stages (s) {stages}; peak {peak:.2f} GiB allocated "
+              f"({CARD})")
+        print(f"   {name}: ok lanes {rec['ok']} of {t}"
+              + (f"; vol paths against the cold fit's, median rel diff "
+                 f"{rec['vol_rel_to_cold']:.3e}" if aux is not None else "")
+              + f"; kernel launches {launches}")
+        _check_fan(torch, f"multitask {name}", fan,
+                   (t, len(cfg.quantile_levels), h))
+        if not bool(out_aux["ok"].all()):
+            fail(f"multitask {name}: {t - rec['ok']} tasks failed")
+        _check_launched(f"multitask {name}", launches, dev)
+        runs[name] = rec
+        aux = out_aux
+    if not runs["warm"]["vol_rel_to_cold"] < 0.1:
+        fail("multitask: the warm refit's vol paths are far from the cold "
+             "fit's")
+    return runs["cold"]["launches"], runs
+
+
+def run_long_main_path(torch, vt, native, dev="cuda", b=16, n=16000, h=100,
+                       iters=300, nsample=1000):
+    """``fit_forecast_batch`` with the defaults at B=16, n=16000 (ROADMAP
+    item 9's cell): the vol stage's spectral cache projects by the FFT.
+    The grid takes the simulation's own step (as ``gpcv_sparse``)."""
+    from volt_tpu_torch.parallel import PipelineConfig, fit_forecast_batch
+
+    f, v_true = vt.data.sabr_paths(steps=n + 1, seed=2, n_paths=b)
+    dt = 1.0 / (n + 1)
+    x = torch.arange(n, dtype=torch.float32, device=dev) * dt
+    test_x = x[-1] + dt * torch.arange(1, h + 1, dtype=torch.float32,
+                                       device=dev)
+    ys = torch.tensor(f, device=dev)
+    cfg = PipelineConfig(gpcv_iters=iters, vol_iters=iters, data_iters=iters,
+                         nsample=nsample)
+    g = torch.Generator(device=dev).manual_seed(10)
+    _reset_peak(torch, dev)
+    native.launches.clear()
+    t0 = time.perf_counter()
+    paths, aux = fit_forecast_batch(g, x, ys, test_x, cfg)
+    _sync(torch, dev)
+    total = time.perf_counter() - t0
+    launches = dict(native.launches)
+    peak = _peak_gib(torch, dev)
+    stages = {k: round(v, 4) for k, v in aux["stage_seconds"].items()}
+    print(f"   B={b}, n={n} call: {total:.3f} s; stages (s) {stages}; peak "
+          f"{peak:.2f} GiB allocated ({CARD})")
+    print(f"   ok lanes {int(aux['ok'].sum())} of {b}; kernel launches in "
+          f"the call: {launches}")
+    if tuple(paths.shape) != (b, nsample, h) or \
+            not torch.isfinite(paths).all():
+        fail(f"long_main_path: paths {tuple(paths.shape)} or non-finite")
+    if not bool(aux["ok"].all()):
+        fail(f"long_main_path: ok flags {aux['ok'].tolist()}")
+    _check_launched("long_main_path", launches, dev)
+    ratio = check_vol_band(aux["vol"], v_true, "long_main_path")
+    return launches, {"s": total, "stages": stages, "peak_gib": peak,
+                      "ok": int(aux["ok"].sum()), "vol_ratio": ratio}
+
+
 EXPIRY_STEPS = (4, 20, 62, 99)
 
 
@@ -1003,10 +1239,7 @@ def run_option_pricing(torch, vt, native, dev="cuda", b=500, n=999, h=100,
     if not bool(res["aux"]["ok"].all()):
         fail(f"option_pricing: {int((~res['aux']['ok']).sum())} assets "
              f"failed")
-    for sym in ("volt_ewma_filter", "volt_kalman_forward",
-                "volt_kalman_backward"):
-        if dev == "cuda" and launches.get(sym, 0) < 1:
-            fail(f"option_pricing: {sym} was not launched")
+    _check_launched("option_pricing", launches, dev)
 
     levels, observed = calibration(pct)
     paths = torch.exp(res["samples"][:crps_assets])
@@ -1138,6 +1371,89 @@ def check_small_agreement(torch, vt):
             not pct <= 2 / s:
         fail("small input: price_options_batch differs between card and CPU")
 
+    check_small_agreement_slice_d(torch, vt, f, noise, n, h, s)
+
+
+def check_small_agreement_slice_d(torch, vt, f, noise, n, h, s):
+    """Card against CPU for the FBM pipeline, the multitask pipeline and
+    the FFT projection, each at its stated tolerance."""
+    from volt_tpu_torch.ops.brownian import min_kernel_project
+    from volt_tpu_torch.parallel import (MultitaskPipelineConfig,
+                                         PipelineConfig, fit_forecast_batch,
+                                         fit_forecast_multitask)
+
+    # the FBM pipeline, 20 steps a stage, at rtol 1e-2: it runs the dense
+    # GPCV family, whose Adam turns rounding into lr-sized moves; measured
+    # on the CPU, a 1e-7 relative change of the prices moves its vol by up
+    # to 2.1e-3 and its GPCV loss by 5.3e-4
+    cfg = PipelineConfig(kernel="fbm", gpcv_iters=20, vol_iters=20,
+                         data_iters=20, k=20, nsample=s, output="quantiles")
+    res = {}
+    for dev in ("cpu", "cuda"):
+        x, test_x = grids(torch, n, h, dev)
+        res[dev] = fit_forecast_batch(
+            None, x, torch.tensor(f, device=dev), test_x, cfg,
+            noise={k: v.to(dev) for k, v in noise.items()})
+    (fan_c, aux_c), (fan_g, aux_g) = res["cpu"], res["cuda"]
+    rels = {key: ((aux_g[key].cpu() - aux_c[key]).abs()
+                  / aux_c[key].abs()).max().item()
+            for key in ("gpcv_loss", "vol_loss", "data_loss", "vol")}
+    rels["fan"] = ((fan_g.cpu() - fan_c).abs() / fan_c.abs()).max().item()
+    print(f"   small input, kernel='fbm': max rel diff card vs CPU "
+          f"{ {k: f'{v:.2e}' for k, v in rels.items()} } (tol 1e-2)")
+    if not all(v <= 1e-2 for v in rels.values()) or \
+            not bool(aux_g["ok"].all()):
+        fail("small input, kernel='fbm': the pipeline differs between card "
+             "and CPU")
+
+    # the multitask pipeline on T=3 of the same kind of series, the same
+    # initial draws and normals, at the single-task pipeline's tolerances:
+    # losses and vols rtol 1e-3, fan rtol 2e-3 / atol 1e-3 (measured on
+    # the CPU, a 1e-7 relative change of the prices moves its GPCV loss by
+    # 3.9e-5 and its fan by 2e-7)
+    t = 3
+    f3, _ = vt.data.sabr_paths(steps=n + 1, seed=78, n_paths=t)
+    g = torch.Generator().manual_seed(6)
+    mnoise = {"vol_z": torch.randn(s, n + h, t, generator=g),
+              "vol_eps": torch.randn(s, n, t, generator=g),
+              "zs": torch.randn(t, s, h, generator=g)}
+    mcfg = MultitaskPipelineConfig(gpcv_iters=20, vol_iters=20,
+                                   data_iters=20, nsample=s,
+                                   output="quantiles")
+    res = {}
+    for dev in ("cpu", "cuda"):
+        x, test_x = grids(torch, n, h, dev)
+        res[dev] = fit_forecast_multitask(
+            torch.Generator().manual_seed(3), x,
+            torch.tensor(f3, device=dev), test_x, mcfg,
+            noise={k: v.to(dev) for k, v in mnoise.items()})
+    (fan_c, aux_c), (fan_g, aux_g) = res["cpu"], res["cuda"]
+    rels = {key: ((aux_g[key].cpu() - aux_c[key]).abs()
+                  / aux_c[key].abs()).max().item()
+            for key in ("gpcv_loss", "vol_loss", "data_losses", "vols")}
+    err = (fan_g.cpu() - fan_c).abs().max().item()
+    print(f"   small input, multitask: max rel diff card vs CPU "
+          f"{ {k: f'{v:.2e}' for k, v in rels.items()} } (tol 1e-3); fan max "
+          f"abs diff {err:.3e}")
+    if not all(v <= 1e-3 for v in rels.values()) or \
+            not torch.allclose(fan_g.cpu(), fan_c, rtol=2e-3, atol=1e-3) or \
+            not bool(aux_g["ok"].all()):
+        fail("small input: the multitask pipeline differs between card and "
+             "CPU")
+
+    # the FFT projection at n=16000, float32 on the card against float64
+    # on the CPU: within 2e-6 of max|out|, as the CPU tests hold the
+    # float32 projection against the JAX package's
+    y = torch.randn(2, 16000, dtype=torch.float64,
+                    generator=torch.Generator().manual_seed(4))
+    want = min_kernel_project(y)
+    got = min_kernel_project(y.float().cuda()).cpu().double()
+    err = ((got - want).abs().max() / want.abs().max()).item()
+    print(f"   projection n=16000 (FFT), card float32 vs CPU float64: max "
+          f"abs diff {err:.3e} of max|out| (tol 2e-6)")
+    if not err <= 2e-6:
+        fail("the FFT projection on the card differs from float64")
+
 
 def setup(package_root=None):
     """Phases 1 and 2: the card, then the kernels built.  ``package_root``
@@ -1230,6 +1546,19 @@ def smoke():
     pricing_launches, pricing = run_option_pricing(torch, vt, native)
     done(t0)
 
+    t0 = phase("fbm_path: fit_forecast_batch(kernel='fbm'), B=64, n=999")
+    fbm_launches, fbm = run_fbm_path(torch, vt, native)
+    done(t0)
+
+    t0 = phase("multitask: fit_forecast_multitask, T=505, n=999, cold and "
+               "warm")
+    mt_launches, multitask = run_multitask(torch, vt, native)
+    done(t0)
+
+    t0 = phase("long_main_path: fit_forecast_batch, B=16, n=16000")
+    long_launches, long_main = run_long_main_path(torch, vt, native)
+    done(t0)
+
     for k in kernels:
         path, counts = paths[k["name"]]
         k["path"] = path
@@ -1238,7 +1567,10 @@ def smoke():
         k["launches_by_path"] = {
             "fit_forecast_batch": launches.get(sym, 0),
             "Volt().Train()": api["train_launches"].get(sym, 0),
-            "price_options_batch": pricing_launches.get(sym, 0)}
+            "price_options_batch": pricing_launches.get(sym, 0),
+            "fbm_path": fbm_launches.get(sym, 0),
+            "multitask": mt_launches.get(sym, 0),
+            "long_main_path": long_launches.get(sym, 0)}
         if k["launches"] < 1:
             fail(f"kernel {k['name']} was not launched by its path ({path})")
 
@@ -1250,7 +1582,8 @@ def smoke():
                       "reference_api": api, "gpcv_gh": gh,
                       "gpcv_full": gpcv_full, "gpcv_cv": gpcv_cv,
                       "gpcv_sparse": gpcv_sparse,
-                      "option_pricing": pricing}))
+                      "option_pricing": pricing, "fbm_path": fbm,
+                      "multitask": multitask, "long_main_path": long_main}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1271,6 +1604,11 @@ PHASES = {
     "gpcv_sparse": lambda torch, vt, native: run_gpcv_sparse(torch, vt,
                                                              native)[1],
     "option_pricing": lambda torch, vt, native: run_option_pricing(
+        torch, vt, native)[1],
+    "fbm_path": lambda torch, vt, native: run_fbm_path(torch, vt, native)[1],
+    "multitask": lambda torch, vt, native: run_multitask(torch, vt,
+                                                         native)[1],
+    "long_main_path": lambda torch, vt, native: run_long_main_path(
         torch, vt, native)[1],
 }
 PHASES_TAG = "chip_smoke phases: "

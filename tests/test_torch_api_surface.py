@@ -1,0 +1,88 @@
+"""The port's public surface against the JAX package's: every module of
+``volt_tpu_torch`` that has a counterpart in ``volt_tpu`` exports each
+name of that module's ``__all__``, less the names listed here with the
+ROADMAP.md item that ports them (or the reason the port has no use for
+them), as ``tests/test_api_surface.py`` checks the JAX package's own
+surface."""
+
+import importlib
+import importlib.util
+import pkgutil
+
+import pytest
+
+import volt_tpu_torch
+
+# name -> the ROADMAP.md item that ports it, or why the port leaves it out
+NOT_YET = {
+    # item 17: the baseline kernels, models and trainer
+    **dict.fromkeys(("OUKernel", "RBFKernel", "MaternKernel", "ScaleKernel",
+                     "SpectralMixtureKernel", "BasicGP", "BasicGPState",
+                     "MaternGP", "SMGP", "train_basic_model",
+                     "TrainBasicModel"), "item 17"),
+    # item 18: the LSTM baseline
+    **dict.fromkeys(("LSTMModel", "train_lstm", "LSTM"), "item 18"),
+    # item 19: the baselines' rollouts
+    **dict.fromkeys(("nonvol_rollouts", "nonvol_rollouts_dense"), "item 19"),
+    # item 23: the mesh
+    **dict.fromkeys(("make_mesh", "multihost_initialize", "shard_batch"),
+                    "item 23"),
+    # item 5: the associative-scan forms and the rest of data/
+    **dict.fromkeys(("tridiag_solve", "brownian_noise_mll",
+                     "make_ticker_list", "ticker_file_path",
+                     "corrvol_windows", "gbm_windows", "gusty_wind_windows",
+                     "sabr_windows", "wind_windows", "fixtures_dir"),
+                    "item 5"),
+    # "Do not port": only the JAX package's tests use the fixed-covariance
+    # MLL; the port builds the spectral basis with int64 angles, so the
+    # JAX package's int32 bound on n does not apply
+    **dict.fromkeys(("FixedCovCache", "make_fixed_cov_cache",
+                     "exact_mll_fixed_cov", "spectral_n_ok"), "do not port"),
+}
+
+
+def _pairs():
+    pairs = []
+    for info in pkgutil.walk_packages(volt_tpu_torch.__path__,
+                                      "volt_tpu_torch."):
+        ref = info.name.replace("volt_tpu_torch", "volt_tpu", 1)
+        if importlib.util.find_spec(ref) is not None:
+            pairs.append((info.name, ref))
+    return [("volt_tpu_torch", "volt_tpu"), *pairs]
+
+
+@pytest.mark.parametrize("port,ref", _pairs(), ids=lambda s: s)
+def test_port_exports_what_jax_exports(port, ref):
+    want = getattr(importlib.import_module(ref), "__all__", ())
+    mod = importlib.import_module(port)
+    missing = [n for n in want if n not in NOT_YET and not hasattr(mod, n)]
+    assert not missing, f"{port} lacks {missing}"
+    exported = set(getattr(mod, "__all__", ()))
+    unlisted = [n for n in want if hasattr(mod, n) and n not in exported
+                and n not in NOT_YET]
+    assert not unlisted, f"{port} does not list {unlisted} in __all__"
+
+
+def test_reference_name_aliases():
+    """The reference's names (ROADMAP item 5's aliases)."""
+    from volt_tpu_torch import models, ops
+
+    assert volt_tpu_torch.VoltronGP is volt_tpu_torch.VoltGP
+    assert models.VoltMagpie is models.VoltGP
+    assert models.SingleTaskVariationalGP is models.GPCVModel
+    for name in ("BMKernel", "VolatilityKernel", "BMGP", "MultitaskBMGP"):
+        assert name in volt_tpu_torch.__all__
+    for name in ("mvn_kl", "add_jitter", "window_init", "window_append",
+                 "window_value"):
+        assert name in ops.__all__
+
+
+def test_not_yet_names_are_absent_or_stubs():
+    """A name listed as not ported is not silently exported as working:
+    where the port has it, calling it raises ``NotImplementedError``
+    naming its ROADMAP item."""
+    from volt_tpu_torch import train
+
+    with pytest.raises(NotImplementedError, match="item 17"):
+        train.train_basic_model()
+    assert not hasattr(volt_tpu_torch, "nonvol_rollouts")

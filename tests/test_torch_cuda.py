@@ -365,3 +365,123 @@ def test_price_options_batch_card_matches_cpu(cuda):
                                atol=1e-3 * max(strikes))
     pct = out["cuda"]["percentiles"].cpu() - out["cpu"]["percentiles"]
     assert pct.abs().max() <= 2.0 / s
+
+
+def test_fft_projection_on_the_card(cuda):
+    """The spectral projection at n = 16000 (the FFT branch) on the card
+    against a float64 CPU run: 2e-6 of max|out|, as the CPU tests hold
+    float32 against JAX."""
+    tbr = importlib.import_module("volt_tpu_torch.ops.brownian")
+    y = torch.randn(2, 16000, dtype=torch.float64,
+                    generator=torch.Generator().manual_seed(3))
+    want = tbr.min_kernel_project(y)
+    got = tbr.min_kernel_project(y.float().cuda()).cpu().double()
+    assert (got - want).abs().max() <= 2e-6 * want.abs().max()
+
+
+def test_fbm_ladder_per_lane_on_the_card(cuda):
+    """A batch where one lane (H = 0.9999) needs jitter: per lane, the other
+    keeps its bare factor; both lanes' ``L L^T`` equal the CPU's at 1e-4 of
+    the largest entry."""
+    tfbm = importlib.import_module("volt_tpu_torch.ops.fbm")
+    x = torch.arange(1, 41, dtype=torch.float32) / 252.0
+    th = torch.tensor([[1.0], [1.9998]])
+    out = {dev: tfbm.fbm_cholesky(x.to(dev), th.to(dev), per_lane=True).cpu()
+           for dev in ("cpu", "cuda")}
+    bare = torch.linalg.cholesky(tfbm.fbm_increment_cov(x, th[:1]))
+    torch.testing.assert_close(out["cuda"][0], torch.cumsum(bare, -2)[0],
+                               rtol=1e-5, atol=1e-6)
+    for lane in range(2):
+        c, g = (out[d][lane].double() for d in ("cpu", "cuda"))
+        want = c @ c.mT
+        assert ((g @ g.mT) - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+def test_kron_backward_on_the_card_at_the_degenerate_init(cuda):
+    """``kron_mvn_log_prob``'s closed-form backward where the task
+    covariance has repeated eigenvalues (``F F^T + log(2) I``): finite, and
+    equal to the CPU's at rtol 1e-4, atol 1e-5 of the largest (the two
+    ``eigh`` round differently)."""
+    tkr = importlib.import_module("volt_tpu_torch.gp.kronecker")
+    g = torch.Generator().manual_seed(8)
+    n, t = 40, 5
+    x = torch.arange(1, n + 1) / 252.0
+    f = 0.1 * torch.randn(t, 1, generator=g)
+    base = {"y": torch.randn(n, t, generator=g),
+            "mean": 0.1 * torch.randn(n, t, generator=g),
+            "k_data": 0.3 * torch.minimum(x[:, None], x[None, :]),
+            "k_task": f @ f.T + torch.log(torch.tensor(2.0)) * torch.eye(t),
+            "noise": torch.tensor(0.05)}
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        ins = {k: v.to(dev).detach().requires_grad_()
+               for k, v in base.items()}
+        tkr.kron_mvn_log_prob(*ins.values()).backward()
+        grads[dev] = {k: v.grad.cpu() for k, v in ins.items()}
+    for k, want in grads["cpu"].items():
+        got = grads["cuda"][k]
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got, want, rtol=1e-4,
+                                   atol=1e-5 * want.abs().max().item())
+
+
+def test_small_fbm_pipeline_card_matches_cpu(cuda):
+    """``fit_forecast_batch(kernel="fbm")`` at B=2, n=48 on the same normals,
+    at rtol 1e-2: the dense family's Adam turns rounding into lr-sized
+    moves; measured on the CPU, a 1e-7 relative change of the prices moves
+    this pipeline's vol by up to 2.1e-3 and its GPCV loss by 5.3e-4."""
+    from volt_tpu_torch.parallel import PipelineConfig, fit_forecast_batch
+
+    b, n, h, s = 2, 48, 8, 32
+    x, f = _sabr(b, n, 9)
+    test_x = x[-1] + torch.arange(1, h + 1) / 252.0
+    g = torch.Generator().manual_seed(10)
+    noise = {"vol_z": torch.randn(b, s, h, generator=g),
+             "zs": torch.randn(b, s, h, generator=g)}
+    cfg = PipelineConfig(kernel="fbm", gpcv_iters=20, vol_iters=20,
+                         data_iters=20, k=20, nsample=s, output="quantiles")
+    out = {dev: fit_forecast_batch(
+        None, x.to(dev), f.to(dev), test_x.to(dev), cfg,
+        noise={k: v.to(dev) for k, v in noise.items()})
+        for dev in ("cpu", "cuda")}
+    (fan_c, aux_c), (fan_g, aux_g) = out["cpu"], out["cuda"]
+    assert bool(aux_g["ok"].all())
+    for key in ("gpcv_loss", "vol_loss", "data_loss", "vol"):
+        torch.testing.assert_close(aux_g[key].cpu(), aux_c[key], rtol=1e-2,
+                                   atol=0.0)
+    torch.testing.assert_close(fan_g.cpu(), fan_c, rtol=1e-2, atol=0.0)
+
+
+def test_small_multitask_pipeline_card_matches_cpu(cuda):
+    """``fit_forecast_multitask`` at T=3, n=48 on the same initial values and
+    normals: losses and vols rtol 1e-3, the fan rtol 2e-3 / atol 1e-3 (the
+    single-task pipeline's); measured on the CPU, a 1e-7 relative change
+    of the prices moves the GPCV loss by 3.9e-5 and the fan by 2e-7."""
+    from volt_tpu_torch.parallel import (MultitaskPipelineConfig,
+                                         fit_forecast_multitask)
+
+    t, n, h, s = 3, 48, 8, 32
+    x, f = _sabr(t, n, 11)
+    test_x = x[-1] + torch.arange(1, h + 1) / 252.0
+    g = torch.Generator().manual_seed(12)
+    noise = {"vol_z": torch.randn(s, n + h, t, generator=g),
+             "vol_eps": torch.randn(s, n, t, generator=g),
+             "zs": torch.randn(t, s, h, generator=g)}
+    cfg = MultitaskPipelineConfig(gpcv_iters=20, vol_iters=20, data_iters=20,
+                                  nsample=s, output="quantiles")
+    out = {}
+    for dev in ("cpu", "cuda"):
+        before = dict(native.launches)
+        out[dev] = fit_forecast_multitask(
+            torch.Generator().manual_seed(13), x.to(dev), f.to(dev),
+            test_x.to(dev), cfg,
+            noise={k: v.to(dev) for k, v in noise.items()})
+    for sym in ("volt_ewma_filter", "volt_kalman_forward",
+                "volt_kalman_backward"):
+        assert native.launches[sym] > before.get(sym, 0)
+    (fan_c, aux_c), (fan_g, aux_g) = out["cpu"], out["cuda"]
+    assert bool(aux_g["ok"].all())
+    for key in ("gpcv_loss", "vol_loss", "data_losses", "vols"):
+        torch.testing.assert_close(aux_g[key].cpu(), aux_c[key], rtol=1e-3,
+                                   atol=0.0)
+    torch.testing.assert_close(fan_g.cpu(), fan_c, rtol=2e-3, atol=1e-3)

@@ -505,8 +505,8 @@ def test_gpcv_prediction_on_test_grid(data, q):
 def test_gpcv_constructor_defaults_and_errors():
     m = GPCVModel()
     assert (m.q, m.likelihood.param) == ("full", "exp")
-    with pytest.raises(NotImplementedError, match="item 16"):
-        GPCVModel(kernel="fbm")
+    fbm = GPCVModel(kernel="fbm")
+    assert (fbm.q, type(fbm.kernel).__name__) == ("full", "FBMKernel")
     with pytest.raises(ValueError):
         GPCVModel(q="banded")
 
@@ -742,8 +742,8 @@ def test_warm_start_dense_root(pipe_data, pipe_runs):
 
 def test_resolve_config_downgrades():
     """The JAX package's rules: NGVI with the dense family runs Adam; FBM
-    would take the dense family and the Kalman vol MLL, then raises."""
+    takes the dense family and the Kalman vol MLL."""
     cfg = _resolve_config(PipelineConfig(gpcv_q="full", gpcv_opt="ngvi"))
     assert (cfg.gpcv_q, cfg.gpcv_opt) == ("full", "adam")
-    with pytest.raises(NotImplementedError, match="item 16"):
-        _resolve_config(PipelineConfig(kernel="fbm"))
+    cfg = _resolve_config(PipelineConfig(kernel="fbm"))
+    assert (cfg.gpcv_q, cfg.vol_mll) == ("full", "kalman")

@@ -126,19 +126,34 @@ AGREEMENT_CASES = {"float32 loop": (None, 0.0, True),
                    "var out": (2, 3e-5, False),
                    "d/dsigma2 in": (4, 5e-5, True),
                    "d/dsigma2 out": (4, 3e-4, False),
-                   "d/dresid out": (5, 3e-4, False)}
+                   "d/dresid out": (5, 3e-4, False),
+                   # the float32 loop's own gradient moved outside its
+                   # tolerance from float64: the float64 loop is the
+                   # reference, which the float64 run passes and the
+                   # moved float32 loop fails
+                   "d/dsigma2 reference out, float64 in": (
+                       ("plain", 4), 3e-4, True),
+                   "d/dsigma2 reference out, reference in": (
+                       ("both", 4), 3e-4, False)}
 
 
 @pytest.mark.parametrize("case", list(AGREEMENT_CASES))
 def test_kalman_agreement_rule(case):
     """The card checks' rule passes the plain loop itself and its float64
-    run, and fails an output or a gradient moved past its tolerance."""
+    run, and fails an output or a gradient moved past its tolerance; where
+    the float32 loop's gradient is itself out of its tolerance from
+    float64, the gradient is held to the float64 loop."""
     which, rel, passes = AGREEMENT_CASES[case]
     plain, f64 = _plain_runs()
-    got = [t.float() for t in f64] if which == "f64" else \
+    got = [t.float() for t in f64] if which in ("f64", ("plain", 4)) else \
         [t.clone() for t in plain]
     if isinstance(which, int):
         got[which] = got[which] * (1.0 + rel)
+    elif isinstance(which, tuple):
+        plain = [t.clone() for t in plain]
+        plain[which[1]] = plain[which[1]] * (1.0 + rel)
+        if which[0] == "both":
+            got[which[1]] = plain[which[1]].clone()
     rows = ttd.kalman_agreement(got, plain, f64)
     assert [r[0] for r in rows] == list(ttd.KALMAN_CHECKED)
     assert all(r[1] <= 1.0 for r in rows) == passes, rows

@@ -91,13 +91,13 @@ def test_gpcv_predicted_scale(data, gpcv_params):
     close(tm.predicted_scale(), want, RTOL)
 
 
-@pytest.mark.parametrize("kwargs,exc", [({"kernel": "fbm"},
-                                         NotImplementedError),
-                                        ({"q": "full"}, None),
-                                        ({"param": "cv"}, None),
-                                        ({"kernel": "rbf"}, ValueError)])
+@pytest.mark.parametrize("kwargs,exc", [
+    # the id this case carried while the kernel was not ported
+    pytest.param({"kernel": "fbm"}, None, id="kwargs0-NotImplementedError"),
+    ({"q": "full"}, None), ({"param": "cv"}, None),
+    ({"kernel": "rbf"}, ValueError)])
 def test_gpcv_outside_the_slice(kwargs, exc):
-    """FBM still raises; the dense family and the cv likelihood construct
+    """The FBM kernel, the dense family and the cv likelihood construct
     with the JAX package's defaults for the rest."""
     if exc is None:
         m = GPCVModel(**kwargs)

@@ -209,8 +209,12 @@ def test_min_kernel_project(rs, n):
 
 
 def test_min_kernel_project_long_series_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tbr.min_kernel_project(torch.zeros(tbr.PROJECT_MAX_N + 1))
+    """Above n = 4096 the projection is the FFT (ported), equal to the
+    basis product in float64."""
+    y = torch.tensor(np.random.default_rng(2).standard_normal((2, 4097)))
+    close(tbr.min_kernel_project(y),
+          tbr.min_kernel_project(y, method="matmul"), 0.0,
+          1e-10 * y.abs().sum().item())
 
 
 @pytest.mark.parametrize("grid", ["future", "overlap", "decreasing", "single"])

@@ -194,7 +194,9 @@ def test_every_mean_runs(data, mean):
 @pytest.mark.parametrize("field,value,exc", [
     ("gpcv_opt", "sgd", ValueError),
     ("gpcv_q", "full", None),
-    ("kernel", "fbm", NotImplementedError),
+    # the id this case carried while the value was not ported
+    pytest.param("kernel", "fbm", None,
+                 id="kernel-fbm-NotImplementedError"),
     ("vol_mll", "dense", ValueError),
     ("mean_func", "nope", ValueError),
     ("output", "paths", ValueError),
@@ -202,11 +204,10 @@ def test_every_mean_runs(data, mean):
 def test_config_outside_the_slice(data, field, value, exc):
     x, f, test_x = data
     cfg = dataclasses.replace(PipelineConfig(**STD), **{field: value})
-    if exc is None:  # ported: the configuration is taken as it is
-        assert _resolve_config(cfg) == cfg
+    if exc is None:  # ported: the value is taken as it is
+        assert getattr(_resolve_config(cfg), field) == value
         return
-    with pytest.raises(exc, match="ROADMAP" if exc is NotImplementedError
-                       else None):
+    with pytest.raises(exc):
         fit_forecast_batch(None, t32(x), t32(f), t32(test_x), cfg)
 
 

@@ -146,11 +146,13 @@ def test_aliases_and_unported_entries(data):
     got = ttrain.learn_gpcv_sparse(t32(x), t32(f), num_inducing=8,
                                    train_iters=2)
     assert got.shape == (N,) and torch.isfinite(got).all()
-    for entry in (ttrain.learn_gpcv_multitask,
-                  ttrain.train_basic_model, ttrain.train_volt_multitask):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            entry(t32(x), t32(f))
+    fs = torch.stack([t32(f), t32(f) * 1.01])
+    got = ttrain.learn_gpcv_multitask(t32(x), fs, 2)
+    assert got.shape == (2, N) and torch.isfinite(got).all()
+    volt, mt = ttrain.train_volt_multitask(t32(x), fs[:, 1:], got, 2, 2)
+    assert volt.train_y.shape == (2, N) and mt.train_y.shape == (N, 2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Volt(t32(x), torch.zeros(2, N))
+        ttrain.train_basic_model(t32(x), t32(f))
+    assert Volt(t32(x), torch.zeros(2, N)).batched
     with pytest.raises(ValueError):
         ttrain.learn_gpcv(t32(x), t32(f), 2, q="full", opt="ngvi")

@@ -53,3 +53,16 @@ def jax_pipeline_noise(key, batch: int, nsample: int, horizon: int):
         zs.append(jax.random.normal(k_z, (nsample, horizon), jnp.float32))
     return {"vol_r0": t32(np.stack(r0)), "vol_z": t32(np.stack(vz)),
             "zs": t32(np.stack(zs))}
+
+
+def jax_multitask_noise(key, tasks: int, n: int, nsample: int, horizon: int):
+    """The standard normals ``volt_tpu.parallel.fit_forecast_multitask``
+    draws from ``key`` (``(k_lik, k_roll)``, then ``(k_vol, k_z)``;
+    ``MultitaskBMGP.sample_forecast`` splits ``k_vol`` into ``(k0, k1)``
+    for its ``z`` and ``eps``), in the port's injected-noise layout."""
+    _, k_roll = jax.random.split(key)
+    k_vol, k_z = jax.random.split(k_roll)
+    k0, k1 = jax.random.split(k_vol)
+    return {"vol_z": t32(jax.random.normal(k0, (nsample, n + horizon, tasks))),
+            "vol_eps": t32(jax.random.normal(k1, (nsample, n, tasks))),
+            "zs": t32(jax.random.normal(k_z, (tasks, nsample, horizon)))}

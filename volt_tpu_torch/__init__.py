@@ -13,28 +13,38 @@ tridiagonal GPCV by Adam or NGVI, spectral or Kalman vol MLL, every mean),
 the single-asset reference API: the training entries of
 :mod:`volt_tpu_torch.train`, the forecasts of :mod:`volt_tpu_torch.rollouts`
 and :class:`~volt_tpu_torch.models.Volt`; the GPCV families (the ``cv``
-likelihood, the dense and sparse ``q``, prediction onto test grids); and
-the option layer: :mod:`volt_tpu_torch.options`,
+likelihood, the dense and sparse ``q``, prediction onto test grids); the
+option layer: :mod:`volt_tpu_torch.options`,
 :mod:`volt_tpu_torch.calibration` and
-:func:`volt_tpu_torch.parallel.price_options_batch`.
+:func:`volt_tpu_torch.parallel.price_options_batch`; the FBM kernel
+family (``PipelineConfig(kernel="fbm")``); and the Kronecker multitask
+chain (:mod:`volt_tpu_torch.gp.kronecker`,
+:mod:`volt_tpu_torch.models.multitask`,
+:func:`volt_tpu_torch.parallel.fit_forecast_multitask`).  Not yet: the
+baselines (``train_basic_model``, ``nonvol_rollouts``), the mesh and the
+edges (ROADMAP.md).
 """
 
 __version__ = "0.2.0"
 
 from . import calibration, convert, data, gp, kernels, likelihoods, means
 from . import models, ops, options, parallel, rollouts, train
-from .models import Volt
+from .kernels import BMKernel, VolatilityKernel
+from .models import BMGP, MultitaskBMGP, Volt, VoltGP, VoltronGP
 from .options import ECDF, Pricer, ecdf, pricer
-from .parallel import (PipelineConfig, fit_forecast, fit_forecast_batch,
-                       warm_start)
+from .parallel import (MultitaskPipelineConfig, PipelineConfig, fit_forecast,
+                       fit_forecast_batch, fit_forecast_multitask, warm_start,
+                       warm_start_multitask)
 from .rollouts import generate_prediction
 from .rollouts import generate_prediction as GeneratePrediction
 from .rollouts import mean_prediction
 from .rollouts import rollouts as Rollouts
-from .rollouts import sample_prediction, sample_vol_paths, volt_posterior
+from .rollouts import (rollouts_multitask, sample_prediction,
+                       sample_vol_paths, volt_posterior)
 from .train import (LearnGPCV, TrainDataModel, TrainVolModel,
-                    TrainVoltMagpieModel, learn_gpcv, learn_gpcv_sparse,
-                    train_data_model, train_vol_model, train_volt_magpie)
+                    TrainVoltMagpieModel, learn_gpcv, learn_gpcv_multitask,
+                    learn_gpcv_sparse, train_data_model, train_vol_model,
+                    train_volt_magpie, train_volt_multitask)
 
 __all__ = [
     "convert",
@@ -53,9 +63,11 @@ __all__ = [
     "Volt",
     "learn_gpcv",
     "learn_gpcv_sparse",
+    "learn_gpcv_multitask",
     "train_vol_model",
     "train_data_model",
     "train_volt_magpie",
+    "train_volt_multitask",
     "LearnGPCV",
     "TrainVolModel",
     "TrainDataModel",
@@ -67,13 +79,24 @@ __all__ = [
     "sample_prediction",
     "mean_prediction",
     "volt_posterior",
+    "rollouts_multitask",
     "PipelineConfig",
     "fit_forecast",
     "fit_forecast_batch",
     "warm_start",
+    "MultitaskPipelineConfig",
+    "fit_forecast_multitask",
+    "warm_start_multitask",
     "ecdf",
     "pricer",
     "ECDF",
     "Pricer",
+    # reference-style aliases (voltron/__init__.py:1-12)
+    "BMKernel",
+    "VolatilityKernel",
+    "BMGP",
+    "VoltGP",
+    "VoltronGP",
+    "MultitaskBMGP",
     "__version__",
 ]

@@ -1,3 +1,3 @@
-from .kernels import BMKernel, VolatilityKernel
+from .kernels import BMKernel, FBMKernel, IndexKernel, VolatilityKernel
 
-__all__ = ["BMKernel", "VolatilityKernel"]
+__all__ = ["BMKernel", "FBMKernel", "VolatilityKernel", "IndexKernel"]

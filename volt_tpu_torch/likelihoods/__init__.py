@@ -1,3 +1,5 @@
-from .likelihoods import GaussianLikelihood, VolatilityGaussianLikelihood
+from .likelihoods import (GaussianLikelihood, MultitaskGaussianLikelihood,
+                          VolatilityGaussianLikelihood)
 
-__all__ = ["GaussianLikelihood", "VolatilityGaussianLikelihood"]
+__all__ = ["GaussianLikelihood", "MultitaskGaussianLikelihood",
+           "VolatilityGaussianLikelihood"]

@@ -11,7 +11,8 @@ from ..ops.constraints import GreaterThan, Interval, Positive, softplus
 from ..ops.gh_ell import exp_log_prob, exp_scale, gh_expected_log_prob
 from ..ops.quadrature import DEFAULT_NUM_LOCS, expected_value
 
-__all__ = ["GaussianLikelihood", "VolatilityGaussianLikelihood"]
+__all__ = ["GaussianLikelihood", "MultitaskGaussianLikelihood",
+           "VolatilityGaussianLikelihood"]
 
 _LOG_2PI = math.log(2.0 * math.pi)
 
@@ -30,8 +31,23 @@ class GaussianLikelihood(nn.Module):
             (*batch_shape, 1), raw_noise_init, dtype=dtype, device=device))
         return self
 
+    def init_with_noise(self, noise: float, batch_shape=(),
+                        dtype=torch.float32, device=None):
+        """Init from a transformed noise value (the working setter)."""
+        raw = self.constraint.inverse(torch.tensor(noise, dtype=dtype))
+        return self.init(batch_shape, dtype, device, raw.item())
+
     def noise(self):
         return self.constraint.forward(self.raw_noise)
+
+
+class MultitaskGaussianLikelihood(GaussianLikelihood):
+    """One noise shared by ``num_tasks`` outputs (the reference sets it to
+    1e-3 through the working setter, ``models/VoltronGP.py:47-48``)."""
+
+    def __init__(self, num_tasks: int, noise_constraint=None):
+        super().__init__(noise_constraint)
+        self.num_tasks = num_tasks
 
 
 class VolatilityGaussianLikelihood(nn.Module):

@@ -1,12 +1,16 @@
-"""Exact GP over log-volatility with the Brownian drift mean (port of the
-slice's part of :mod:`volt_tpu.models.bmgp`).
+"""Exact GP over log-volatility with the Brownian drift mean (port of
+:mod:`volt_tpu.models.bmgp`).
 
 Stage 2: fit ``log(vol)`` with the BM kernel and the Itô drift mean
 ``-0.5 vol^2 t`` through the closed-form spectral MLL (elementwise O(n)
 per step on an equispaced grid) or the Kalman MLL (kernel S1, any grid),
 then forecast vol paths from the filtered last-point state plus
 independent Brownian increments.  The dense MLL, posterior and sampler
-serve the reference API and grids that are not strictly future.
+serve the reference API, grids that are not strictly future and the FBM
+kernel (``kernel="fbm"``), whose ``K + noise I`` is factored in the
+increment domain (:mod:`..ops.fbm`) with a jitter ladder per asset.  The
+Markov closed forms (``forecast_state``, ``posterior_forecast``,
+``sample_forecast``) refuse the FBM kernel.
 """
 
 from __future__ import annotations
@@ -18,11 +22,11 @@ import torch
 from torch import nn
 
 from ..gp.exact import exact_mll, posterior
-from ..kernels import BMKernel
+from ..kernels import BMKernel, FBMKernel
 from ..likelihoods import GaussianLikelihood
 from ..ops.brownian import (future_grid_ok, min_kernel_eigenvalues,
                             min_kernel_project, nan_poison)
-from ..ops.mvn import sample_mvn
+from ..ops.mvn import mvn_log_prob_chol, sample_mvn
 from ..ops.tridiag import brownian_noise_filter, brownian_noise_mll_kalman
 
 __all__ = ["BMGP", "BMGPState"]
@@ -54,17 +58,18 @@ class BMGPState:
 
 
 class BMGP(nn.Module):
-    """Parameters (after :meth:`init`): ``kernel.raw_vol`` and
-    ``likelihood.raw_noise``, each ``(*batch, 1)``."""
+    """Parameters (after :meth:`init`): ``kernel.raw_vol`` (the BM vol, or
+    the FBM kernel's Hurst parameter) and ``likelihood.raw_noise``, each
+    ``(*batch, 1)``."""
 
     def __init__(self, kernel: str = "bm"):
         super().__init__()
-        if kernel == "fbm":
-            raise NotImplementedError("BMGP(kernel='fbm') is not ported yet "
-                                      "(ROADMAP slice C, item 16)")
-        if kernel != "bm":
+        if kernel == "bm":
+            self.kernel = BMKernel()
+        elif kernel == "fbm":
+            self.kernel = FBMKernel()
+        else:
             raise ValueError("kernel must be 'bm' or 'fbm'")
-        self.kernel = BMKernel()
         self.likelihood = GaussianLikelihood()
 
     def init(self, batch_shape=(), dtype=torch.float32, device=None):
@@ -77,8 +82,27 @@ class BMGP(nn.Module):
         """Analytic drift ``-0.5 vol^2 t``."""
         return -0.5 * self.kernel.vol() ** 2.0 * x
 
+    def _require_bm(self, method: str):
+        """The Markov closed forms hold for the BM kernel only; on the FBM
+        kernel they would run and be silently wrong."""
+        if not isinstance(self.kernel, BMKernel):
+            raise ValueError(
+                f"{method} requires the BM kernel (Markov closed forms); "
+                f"use posterior/sample for {type(self.kernel).__name__}")
+
+    def _fbm_noise_chol(self, x):
+        """Lower factor of ``K + noise I`` for the FBM kernel, in the
+        increment domain, the jitter ladder per asset."""
+        return self.kernel.noise_cholesky(x, self.likelihood.noise(),
+                                          per_lane=True)
+
     def mll(self, x, y):
-        """Dense exact MLL / n (a Cholesky of ``vol min(x) + noise I``)."""
+        """Dense exact MLL / n: a Cholesky of ``vol min(x) + noise I``, or
+        for the FBM kernel the increment-domain factor of ``K + noise
+        I``."""
+        if isinstance(self.kernel, FBMKernel):
+            chol = self._fbm_noise_chol(x)
+            return mvn_log_prob_chol(y, self.mean(x), chol) / y.shape[-1]
         return exact_mll(y, self.mean(x), self.kernel(x),
                          self.likelihood.noise())
 
@@ -93,10 +117,13 @@ class BMGP(nn.Module):
 
     def posterior(self, train_x, train_y, test_x):
         """Latent posterior ``(mean (..., H), cov (..., H, H))`` at any
-        ``test_x`` by noisy dense conditioning on the train points."""
+        ``test_x`` by noisy dense conditioning on the train points (the FBM
+        kernel's train factor from the increment domain)."""
+        chol_tr = (self._fbm_noise_chol(train_x)
+                   if isinstance(self.kernel, FBMKernel) else None)
         mean, cov = posterior(self.kernel(train_x), self.kernel(train_x, test_x),
                               self.kernel(test_x), train_y - self.mean(train_x),
-                              self.likelihood.noise())
+                              self.likelihood.noise(), chol_tr=chol_tr)
         return mean + self.mean(test_x), cov
 
     def sample(self, train_x, train_y, test_x, sample_shape=(),
@@ -104,8 +131,11 @@ class BMGP(nn.Module):
         """Joint posterior samples ``(*sample_shape, ..., H)`` of the latent
         log vol (``noise``: the standard normals of that shape)."""
         mean, cov = self.posterior(train_x, train_y, test_x)
+        # the FBM kernel samples here in the batched pipeline, one asset a
+        # lane, so its posterior factors climb their jitter ladders apart
         return sample_mvn(mean, cov, sample_shape, generator=generator,
-                          noise=noise)
+                          noise=noise,
+                          per_lane=isinstance(self.kernel, FBMKernel))
 
     def spectral_cache(self, x, y):
         """Closed-form eigensystem of ``min(x)`` on an equispaced grid
@@ -146,11 +176,29 @@ class BMGP(nn.Module):
     def forecast_state(self, train_x, train_y):
         """Filtered ``(mean, var)`` of the latent residual at the last train
         point given all observations (the Kalman filter, kernel S1 on
-        CUDA)."""
+        CUDA; BM kernel only)."""
+        self._require_bm("forecast_state")
         vol = self.kernel.vol()[..., 0]
         noise = self.likelihood.noise()[..., 0]
         resid = train_y - self.mean(train_x)
         return brownian_noise_filter(vol[..., None] * train_x, noise, resid)
+
+    def posterior_forecast(self, train_x, train_y, test_x):
+        """The joint posterior ``(mean (..., H), cov (..., H, H))`` at
+        strictly-future ``test_x`` in closed form: the filtered last-point
+        state plus Brownian spread, ``cov_jk = P_n + vol (min(x*_j, x*_k) -
+        x_n)``.  Grids that break the contract come back all-NaN.  BM
+        kernel only."""
+        self._require_bm("posterior_forecast")
+        mu, p = self.forecast_state(train_x, train_y)
+        vol = self.kernel.vol()[..., 0]
+        mean = self.mean(test_x) + mu[..., None]
+        gap = torch.minimum(test_x[..., :, None], test_x[..., None, :]) \
+            - train_x[..., -1:, None]
+        cov = p[..., None, None] + vol[..., None, None] * gap
+        ok = future_grid_ok(test_x, train_x)
+        return (nan_poison(mean, ok[..., None]),
+                nan_poison(cov, ok[..., None, None]))
 
     def sample_forecast(self, train_x, train_y, test_x, nsample: int,
                         generator=None, noise=None):
@@ -159,7 +207,8 @@ class BMGP(nn.Module):
         Brownian increments.  Grids that break that contract come back
         all-NaN.  ``noise`` optionally gives the standard normals
         ``(r0 (..., S), z (..., S, H))``; otherwise they are drawn from
-        ``generator``."""
+        ``generator``.  BM kernel only."""
+        self._require_bm("sample_forecast")
         mu, p = self.forecast_state(train_x, train_y)
         vol = self.kernel.vol()[..., 0]
         incs = vol[..., None] * torch.diff(test_x, dim=-1,

@@ -1,8 +1,8 @@
 """GPCV: the stage-1 variational volatility model (port of
 :mod:`volt_tpu.models.gpcv`).
 
-A variational GP with the BM kernel, a constant prior mean and the
-volatility likelihood (``param="exp"`` or the reference's ``"cv"``
+A variational GP with the BM (or FBM) kernel, a constant prior mean and
+the volatility likelihood (``param="exp"`` or the reference's ``"cv"``
 softplus mixture), inducing points at the training inputs.  Two
 variational families (``q``):
 
@@ -11,7 +11,13 @@ variational families (``q``):
   takes the BM prior's closed-form KL (``ops.brownian``), O(n^2) a step;
 * ``"tridiag"``: ``q = N(m, (L L^T)^{-1})``, ``L`` lower bidiagonal with
   diagonal ``exp(q_log_d)`` and subdiagonal ``q_e``; its ELBO is O(n):
-  Takahashi marginals and the closed-form tridiagonal KL.
+  Takahashi marginals and the closed-form tridiagonal KL; BM kernel only
+  (it rests on the Markov prior).
+
+With the FBM kernel the prior's factor comes from the increment domain
+(:mod:`..ops.fbm`, the jitter ladder per asset), the KL is the dense MVN
+KL against it, and the init's root is not inflated x10 (against the FBM
+prior the inflated init diverges, as the JAX package records).
 
 The expected log-likelihood is the closed form for ``"exp"`` (with
 ``ell_method="quadrature"`` the reference's GH-75 term, kernel K3 on
@@ -30,10 +36,10 @@ import torch
 from torch import nn
 
 from ..convert import load_jax_params
-from ..gp.variational import (VariationalState, exp_laplace_inv_hessian,
-                              laplace_initialize, running_std_latent_init,
-                              variational_predict)
-from ..kernels import BMKernel
+from ..gp.variational import (VariationalState, elbo_at_inducing,
+                              exp_laplace_inv_hessian, laplace_initialize,
+                              running_std_latent_init, variational_predict)
+from ..kernels import BMKernel, FBMKernel
 from ..likelihoods import VolatilityGaussianLikelihood
 from ..means import ConstantMean
 from ..ops.bidiag import (bidiag_chol_from_tridiag, bidiag_solve_lower,
@@ -41,6 +47,7 @@ from ..ops.bidiag import (bidiag_chol_from_tridiag, bidiag_solve_lower,
                           tridiag_q_kl_bm_prior)
 from ..ops.brownian import bm_kl_against_prior
 from ..ops.chol import cholesky_solve, psd_safe_cholesky
+from ..ops.mvn import mvn_kl
 from ..ops.quadrature import DEFAULT_NUM_LOCS
 
 __all__ = ["GPCVModel", "GPCVState"]
@@ -85,13 +92,14 @@ class GPCVModel(nn.Module):
                  num_locs: int = DEFAULT_NUM_LOCS, q: str = "full",
                  ell_method: str | None = None):
         super().__init__()
-        if kernel == "fbm":
-            raise NotImplementedError("GPCVModel(kernel='fbm') is not ported "
-                                      "yet (ROADMAP slice C, item 16)")
-        if kernel != "bm":
+        if kernel not in ("bm", "fbm"):
             raise ValueError("kernel must be 'bm' or 'fbm'")
         if q not in ("full", "tridiag"):
             raise ValueError("q must be 'full' or 'tridiag'")
+        if q == "tridiag" and kernel != "bm":
+            # the tridiagonal-precision family rests on the BM prior's
+            # Markov property
+            raise ValueError("q='tridiag' requires the BM kernel")
         if ell_method not in (None, "quadrature", "analytic"):
             raise ValueError("ell_method must be None, 'quadrature' or "
                              "'analytic'")
@@ -100,7 +108,7 @@ class GPCVModel(nn.Module):
         # "quadrature" is the reference's GH term (train_utils.py:52);
         # None keeps the likelihood's default (the closed form for exp)
         self.ell_method = ell_method
-        self.kernel = BMKernel()
+        self.kernel = BMKernel() if kernel == "bm" else FBMKernel()
         self.mean = ConstantMean()
         self.likelihood = VolatilityGaussianLikelihood(param=param)
 
@@ -133,16 +141,29 @@ class GPCVModel(nn.Module):
         self._start(y, generator, likelihood_params)
         if self.q == "tridiag":
             return self._init_tridiag(train_x, y)
-        kuu = self.kernel(train_x)
+        chol_kuu = self._prior_chol(train_x, per_lane)
+        kuu = self.kernel(train_x) if chol_kuu is None else None
+        # the reference's x10 root inflation for BM only: against the FBM
+        # prior the inflated init diverges (the JAX package's measurement)
+        root_scale = 10.0 if isinstance(self.kernel, BMKernel) else 1.0
         if self.likelihood.param == "cv":
             f, mean_const, inv_hess = self._cv_laplace_pieces(y)
             state, _ = laplace_initialize(kuu, y, f=f, inv_hess=inv_hess,
-                                          root_scale=10.0, per_lane=per_lane)
+                                          root_scale=root_scale,
+                                          chol_kuu=chol_kuu, per_lane=per_lane)
         else:
-            state, mean_const = laplace_initialize(kuu, y, root_scale=10.0,
-                                                   per_lane=per_lane)
+            state, mean_const = laplace_initialize(
+                kuu, y, root_scale=root_scale, chol_kuu=chol_kuu,
+                per_lane=per_lane)
         return self._set(mean_const, state.variational_mean,
                          chol_variational_covar=state.chol_variational_covar)
+
+    def _prior_chol(self, x, per_lane: bool = True):
+        """The FBM prior's factor from the increment domain, or ``None``
+        for the BM kernel (whose prior is never factored)."""
+        if isinstance(self.kernel, FBMKernel):
+            return self.kernel.prior_cholesky(x, per_lane=per_lane)
+        return None
 
     def _cv_laplace_pieces(self, y):
         """The cv Laplace ingredients: the latent from inverting ``scale(f)
@@ -179,10 +200,16 @@ class GPCVModel(nn.Module):
 
     def elbo(self, train_x, y):
         """Per-asset ELBO at inducing == train == query points, ``(...)``;
-        both families' KLs are the BM prior's closed forms."""
+        with the BM kernel both families' KLs are the prior's closed forms,
+        with the FBM kernel the dense KL against its increment-domain
+        factor."""
         n = y.shape[-1]
         m = self.variational_mean
         prior_mean = self.mean(train_x)
+        if isinstance(self.kernel, FBMKernel):
+            return elbo_at_inducing(self._var_state(), prior_mean, None, y,
+                                    self._ell,
+                                    chol_p=self._prior_chol(train_x))
         if self.q == "tridiag":
             d = torch.exp(self.q_log_d)
             marg_var, _ = takahashi_band(d, self.q_e)
@@ -207,7 +234,8 @@ class GPCVModel(nn.Module):
         :meth:`init`."""
         self._start(y, generator, likelihood_params)
         lik = self.likelihood
-        kuu = self.kernel(inducing_x)
+        chol_kuu = self._prior_chol(inducing_x)
+        kuu = self.kernel(inducing_x) if chol_kuu is None else None
         f_exp, rs = running_std_latent_init(y)
         n = train_x.shape[-1]
         take = torch.clamp(torch.searchsorted(train_x, inducing_x), 0, n - 1)
@@ -222,7 +250,7 @@ class GPCVModel(nn.Module):
             mean_const = torch.log(torch.mean(rs, dim=-1))
         state, _ = laplace_initialize(kuu, y[..., take], f=f_m,
                                       root_scale=1.0, inv_hess=inv_hess,
-                                      exp_hessian="diag")
+                                      chol_kuu=chol_kuu, exp_hessian="diag")
         return self._set(mean_const, state.variational_mean,
                          chol_variational_covar=state.chol_variational_covar)
 
@@ -230,14 +258,21 @@ class GPCVModel(nn.Module):
         """The SVGP ELBO: the expected log-likelihood of the unwhitened
         predictive marginals at the ``n`` train points, less the KL over
         the ``m`` inducing points, per datum."""
+        chol_kuu = self._prior_chol(inducing_x)
         mean, var = variational_predict(
             self._var_state(), self.mean(inducing_x),
             self.kernel(inducing_x), self.kernel(inducing_x, train_x),
-            self.mean(train_x), kxx_diag=self.kernel(train_x, diag=True))
+            self.mean(train_x), kxx_diag=self.kernel(train_x, diag=True),
+            chol_kuu=chol_kuu)
         ell = self._ell(y, mean, torch.clamp(var, min=1e-8))
-        kl = bm_kl_against_prior(
-            inducing_x, self.kernel.vol(), self.variational_mean,
-            torch.tril(self.chol_variational_covar), self.mean(inducing_x))
+        chol_q = torch.tril(self.chol_variational_covar)
+        if chol_kuu is None:
+            kl = bm_kl_against_prior(inducing_x, self.kernel.vol(),
+                                     self.variational_mean, chol_q,
+                                     self.mean(inducing_x))
+        else:
+            kl = mvn_kl(self.variational_mean, chol_q, self.mean(inducing_x),
+                        chol_kuu)
         return torch.mean(ell, dim=-1) - kl / y.shape[-1]
 
     def latent_marginals(self, train_x=None, test_x=None):
@@ -255,7 +290,8 @@ class GPCVModel(nn.Module):
         return variational_predict(
             self._var_state(), self.mean(train_x), self.kernel(train_x),
             self.kernel(train_x, test_x), self.mean(test_x),
-            kxx_diag=self.kernel(test_x, diag=True))
+            kxx_diag=self.kernel(test_x, diag=True),
+            chol_kuu=self._prior_chol(train_x))
 
     def _predict_tridiag(self, d, e, m, train_x, test_x):
         """The unwhitened predictive with the tridiagonal q: the algebra of

@@ -19,6 +19,7 @@ from .brownian import (
     nan_poison,
 )
 from .chol import (
+    add_jitter,
     cholesky_solve,
     psd_safe_cholesky,
     solve_lower_triangular,
@@ -26,10 +27,11 @@ from .chol import (
     tril_inverse_quad,
 )
 from .constraints import GreaterThan, Interval, Positive, inv_softplus, softplus
-from .ewma import ewma, ewma_weights
+from .ewma import ewma, ewma_weights, window_append, window_init, window_value
+from .fbm import fbm_cholesky, fbm_increment_cov, fbm_noise_cholesky
 from .gh_ell import gh_expected_log_prob
-from .mvn import conditional, mvn_log_prob, mvn_log_prob_chol, sample_mvn
-from .quadrature import expected_value, gauss_hermite_nodes
+from .mvn import conditional, mvn_kl, mvn_log_prob, mvn_log_prob_chol, sample_mvn
+from .quadrature import DEFAULT_NUM_LOCS, expected_value, gauss_hermite_nodes
 from .tridiag import (
     brownian_noise_filter,
     brownian_noise_mll_kalman,
@@ -52,6 +54,7 @@ __all__ = [
     "min_kernel_project",
     "min_kernel_spectrum",
     "nan_poison",
+    "add_jitter",
     "cholesky_solve",
     "psd_safe_cholesky",
     "solve_lower_triangular",
@@ -64,11 +67,19 @@ __all__ = [
     "softplus",
     "ewma",
     "ewma_weights",
+    "window_append",
+    "window_init",
+    "window_value",
+    "fbm_cholesky",
+    "fbm_increment_cov",
+    "fbm_noise_cholesky",
     "gh_expected_log_prob",
     "conditional",
+    "mvn_kl",
     "mvn_log_prob",
     "mvn_log_prob_chol",
     "sample_mvn",
+    "DEFAULT_NUM_LOCS",
     "expected_value",
     "gauss_hermite_nodes",
     "brownian_noise_filter",

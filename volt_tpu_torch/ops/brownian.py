@@ -7,8 +7,9 @@ integer min-matrix ``M[i, j] = min(i, j)`` (``i, j = 1..n``):
     ``mu_k = 1 / (4 sin^2((2k+1) pi / (2(2n+1))))``
     ``u_k[j] = 2/sqrt(2n+1) * sin((2k+1) j pi / (2n+1))``
 
-and the projection ``U^T y``, here one matrix product against the
-materialised basis.  The dense GPCV family's KL uses the Cholesky factor
+and the projection ``U^T y``: one matrix product against the materialised
+basis up to n = 4096, a real FFT above (any n).  The dense GPCV family's
+KL uses the Cholesky factor
 of ``min(x)``, ``L = T diag(sqrt(dx))`` with ``T`` the lower-ones matrix:
 its solves are differences, its log-determinant ``sum log dx``.
 """
@@ -25,7 +26,6 @@ __all__ = [
     "min_kernel_eigenvalues",
     "min_kernel_spectrum",
     "min_kernel_project",
-    "PROJECT_MAX_N",
     "bm_increments",
     "bm_solve_lower",
     "bm_solve_upper",
@@ -33,10 +33,9 @@ __all__ = [
     "bm_kl_against_prior",
 ]
 
-# Largest n the projection takes: the materialised basis is n^2 floats
-# (67 MB at 4096).  The JAX package switches to a Bluestein FFT above
-# this; the port has no FFT branch yet (ROADMAP "Open items", slice A).
-PROJECT_MAX_N = 4096
+# Above this n, "auto" projects by the FFT: the materialised basis is n^2
+# floats (67 MB at 4096, 1 GB at 16384), as in the JAX package.
+_PROJECT_FFT_MIN_N = 4096
 
 
 def future_grid_ok(test_x, train_x):
@@ -80,19 +79,31 @@ def min_kernel_spectrum(n: int, dtype=torch.float32, device=None):
     return mu, u, torch.sum(u, dim=0)
 
 
-def min_kernel_project(y, axis: int = -1):
-    """``U^T y`` along ``axis`` for the closed-form eigenbasis: one matrix
-    product against the basis (``torch.matmul`` outside any kernel, as the
-    JAX package leaves this product to XLA)."""
+def min_kernel_project(y, axis: int = -1, method: str = "auto"):
+    """``U^T y`` along ``axis`` for the closed-form eigenbasis,
+    ``(U^T y)[k] = 2/sqrt(m) sum_{j=1..n} y_j sin((2k+1) j pi / m)`` with
+    ``m = 2n + 1``.
+
+    ``"matmul"``: one matrix product against the materialised basis
+    (``torch.matmul`` outside any kernel, as the JAX package leaves this
+    product to XLA), O(n^2) memory.  ``"fft"``: the sum is ``-Im`` of bin
+    ``2k+1`` of the length-``2m`` real FFT of ``y`` placed at indices
+    ``1..n`` of zeros; O(n log n), no n x n object, any n (cuFFT and
+    pocketfft take any length, so the JAX package's power-of-two
+    Bluestein evaluation is not needed).  ``"auto"``: matmul up to
+    n = 4096, the FFT above."""
+    if method not in ("auto", "matmul", "fft"):
+        raise ValueError("method must be 'auto', 'matmul' or 'fft'")
     y = torch.movedim(y, axis, -1)
     n = y.shape[-1]
-    if n > PROJECT_MAX_N:
-        raise NotImplementedError(
-            f"min_kernel_project: n={n} > {PROJECT_MAX_N} needs the FFT "
-            "projection, not yet ported (ROADMAP 'Open items': direct "
-            "torch.fft transform for n > 4096)")
-    _, u, _ = min_kernel_spectrum(n, y.dtype, y.device)
-    return torch.movedim(torch.matmul(y, u), -1, axis)
+    if method == "matmul" or (method == "auto" and n <= _PROJECT_FFT_MIN_N):
+        _, u, _ = min_kernel_spectrum(n, y.dtype, y.device)
+        return torch.movedim(torch.matmul(y, u), -1, axis)
+    m = 2 * n + 1
+    spec = torch.fft.rfft(torch.nn.functional.pad(y, (1, 2 * m - n - 1)),
+                          dim=-1)
+    out = -spec[..., 1:2 * n:2].imag * (2.0 / math.sqrt(m))
+    return torch.movedim(out, -1, axis)
 
 
 def _diff_prepend0(b):

@@ -67,11 +67,13 @@ def conditional(k_tr, k_tr_te, k_te, residual, jitter: float | None = None,
 
 
 def sample_mvn(mean, cov, sample_shape=(), jitter: float | None = None,
-               generator=None, noise=None):
+               generator=None, noise=None, per_lane: bool = False):
     """Samples ``(*sample_shape, *mean.shape)`` of ``N(mean, cov)``:
     ``mean + L z``.  ``noise`` optionally gives the standard normals ``z``
-    of that shape; otherwise they are drawn from ``generator``."""
-    chol = psd_safe_cholesky(cov, jitter=jitter)
+    of that shape; otherwise they are drawn from ``generator``.
+    ``per_lane``: each covariance of the batch climbs its own jitter
+    ladder."""
+    chol = psd_safe_cholesky(cov, jitter=jitter, per_lane=per_lane)
     if noise is None:
         noise = torch.randn(*sample_shape, *mean.shape, dtype=mean.dtype,
                             device=mean.device, generator=generator)

@@ -225,7 +225,10 @@ def kalman_agreement(got, plain, f64):
     rows the float32 loop's own rounding passes that tolerance.  The
     gradients are held to the float32 loop at rtol 1e-4 and atol 1e-6 of
     its largest magnitude (at least 1e-6), since d/dv differences
-    neighbouring d/d(delta).  Returns one row per tensor, ``(name, used,
+    neighbouring d/d(delta); where the float32 loop's own gradient is
+    outside that tolerance from the float64 loop (its rounding on many
+    long rows: d/dv at (505, 999)), they are held to the float64 loop at
+    the same tolerance.  Returns one row per tensor, ``(name, used,
     kernel_f64, plain_f64, max_abs_err)``: the share of its tolerance used
     (it passes at most 1.0), S1's and the float32 loop's distance from the
     float64 loop in the same units, and S1's max abs error against the
@@ -236,7 +239,9 @@ def kalman_agreement(got, plain, f64):
         rtol, atol = (1e-5, 0.0) if i < 3 else \
             (1e-4, 1e-6 * max(1.0, p.abs().max().item()))
         kernel_f64 = tolerance_used(a, w, rtol, atol)
-        used = kernel_f64 if i < 3 else tolerance_used(a, p, rtol, atol)
-        rows.append((name, used, kernel_f64, tolerance_used(p, w, rtol, atol),
+        plain_f64 = tolerance_used(p, w, rtol, atol)
+        used = kernel_f64 if i < 3 or plain_f64 > 1.0 else \
+            tolerance_used(a, p, rtol, atol)
+        rows.append((name, used, kernel_f64, plain_f64,
                      (a - p).abs().max().item()))
     return rows

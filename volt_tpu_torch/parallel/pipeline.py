@@ -5,16 +5,19 @@
 
 1. GPCV: Adam (or NGVI) on the tridiagonal-precision ELBO, or Adam on
    the dense family's (``gpcv_q="full"``) -> the vol path;
-2. the vol GP: Adam on the spectral (or Kalman) MLL of ``log(vol)``;
+2. the vol GP: Adam on the spectral (or Kalman) MLL of ``log(vol)``, or
+   with ``kernel="fbm"`` on the dense MLL through the increment-domain
+   factor;
 3. the Volt data model: Adam on the Kalman MLL (kernel S1 on CUDA), with
    a Magpie train mean (kernel K1 on CUDA) computed once outside the loss;
-4. the Markov Monte-Carlo rollout, then the quantile fan or the paths.
+4. the Markov Monte-Carlo rollout (the FBM kernel's vol paths from the
+   dense posterior sampler), then the quantile fan or the paths.
 
 JAX ``vmap``s one asset's program over the batch; here every tensor has a
 leading asset axis and each Adam loop minimises the summed per-asset
 losses, which updates every asset exactly as its own Adam would.  The
-dense GPCV init's Cholesky jitter ladders run per asset, as each asset's
-own program does under ``vmap``.
+dense GPCV init's and the FBM kernel's Cholesky jitter ladders run per
+asset, as each asset's own program does under ``vmap``.
 """
 
 from __future__ import annotations
@@ -40,8 +43,7 @@ __all__ = ["PipelineConfig", "fit_forecast", "fit_forecast_batch",
 @dataclasses.dataclass(frozen=True)
 class PipelineConfig:
     """Static configuration of the pipeline (the JAX package's fields and
-    defaults).  The port runs the BM kernel; ``kernel="fbm"`` raises
-    ``NotImplementedError`` naming the ROADMAP item that ports it."""
+    defaults)."""
 
     gpcv_iters: int = 300
     vol_iters: int = 300
@@ -63,22 +65,21 @@ class PipelineConfig:
     integral_rule: str = "reference"
 
 
-# (field, the port's values, the values not ported yet, ROADMAP item)
+# (field, its values)
 _FIELDS = (
-    ("kernel", ("bm",), ("fbm",), "slice C, item 16"),
-    ("gpcv_q", ("tridiag", "full"), (), None),
-    ("gpcv_opt", ("adam", "ngvi"), (), None),
-    ("vol_mll", ("spectral", "kalman"), (), None),
-    ("output", ("samples", "quantiles"), (), None),
+    ("kernel", ("bm", "fbm")),
+    ("gpcv_q", ("tridiag", "full")),
+    ("gpcv_opt", ("adam", "ngvi")),
+    ("vol_mll", ("spectral", "kalman")),
+    ("output", ("samples", "quantiles")),
 )
 
 
 def _resolve_config(config: PipelineConfig) -> PipelineConfig:
     """The JAX package's downgrades (a non-BM kernel takes the dense GPCV
     family and the Kalman vol MLL; NGVI needs the BM kernel and the
-    tridiagonal family, else Adam), then reject what the port cannot run:
-    ``ValueError`` for values the JAX package does not know either,
-    ``NotImplementedError`` for the parts not ported yet."""
+    tridiagonal family, else Adam), then ``ValueError`` for a value the
+    JAX package does not know either."""
     if config.kernel != "bm":
         repl = {}
         if config.gpcv_q == "tridiag":
@@ -90,15 +91,11 @@ def _resolve_config(config: PipelineConfig) -> PipelineConfig:
     if config.gpcv_opt == "ngvi" and (config.kernel != "bm"
                                       or config.gpcv_q != "tridiag"):
         config = dataclasses.replace(config, gpcv_opt="adam")
-    for field, ours, others, item in _FIELDS:
+    for field, values in _FIELDS:
         value = getattr(config, field)
-        if value in others:
-            raise NotImplementedError(
-                f"PipelineConfig({field}={value!r}) is not ported yet "
-                f"(ROADMAP {item}); the port runs {field} in {ours}")
-        if value not in ours:
+        if value not in values:
             raise ValueError(f"PipelineConfig.{field} must be one of "
-                             f"{(*ours, *others)}, got {value!r}")
+                             f"{values}, got {value!r}")
     make_mean(config.mean_func, k=config.k)  # raises for unknown means
     return config
 
@@ -146,7 +143,9 @@ def fit_forecast_batch(generator, train_x, train_ys, test_x,
     ``test_x (H,)`` the strictly-future forecast grid, all on one device.
     ``generator`` (a ``torch.Generator`` on that device) draws the Monte
     Carlo normals unless ``noise`` gives them:
-    ``{"vol_r0": (B, S), "vol_z": (B, S, H), "zs": (B, S, H)}``.
+    ``{"vol_r0": (B, S), "vol_z": (B, S, H), "zs": (B, S, H)}``; with
+    ``kernel="fbm"`` ``vol_z`` are the dense vol sampler's normals and
+    ``vol_r0`` is not read.
 
     Returns ``(out, aux)``: ``out`` is the paths ``(B, S, H)`` or, with
     ``output="quantiles"``, the fan ``(B, L, H)`` (``aux`` then also holds
@@ -206,8 +205,12 @@ def fit_forecast_batch(generator, train_x, train_ys, test_x,
         latent_mean = (torch.mean(torch.log(train_ys), dim=-1) if use_theta
                        else torch.zeros((), dtype=dtype, device=device))
         h, s = test_x.shape[-1], config.nsample
-        vol_noise = None if noise is None else (noise["vol_r0"],
-                                                noise["vol_z"])
+        if noise is None:
+            vol_noise = None
+        elif config.kernel == "bm":
+            vol_noise = (noise["vol_r0"], noise["vol_z"])
+        else:  # the dense sampler's normals, (S, B, H)
+            vol_noise = noise["vol_z"].movedim(-2, 0)
         pred_vol = sample_vol_paths(vol_state, test_x, s, generator,
                                     vol_noise, assume_future=True)
         zs = (torch.randn(*batch, s, h, dtype=dtype, device=device,

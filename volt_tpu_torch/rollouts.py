@@ -1,4 +1,5 @@
-"""Monte-Carlo forecasting (port of :mod:`volt_tpu.rollouts`).
+"""Monte-Carlo forecasting (port of :mod:`volt_tpu.rollouts`, less the
+baselines' ``nonvol_rollouts``).
 
 The volatility kernel's min-index structure makes the autoregressive
 conditional Markov: given the sampled history, the next log price is
@@ -33,6 +34,7 @@ __all__ = [
     "volt_posterior",
     "generate_prediction_dense",
     "rollouts_dense",
+    "rollouts_multitask",
     "_rollout_volt_scan",
 ]
 
@@ -171,6 +173,53 @@ def rollouts(generator, model: VoltState, train_x, train_y, test_x,
         zs = (_draw(generator, y, *pred_vol.shape) if noise is None
               else noise["zs"])
         return _rollout_volt_scan(model, latent, test_x, pred_vol, zs,
+                                  use_theta, theta if use_theta else 0.0)
+
+
+# ---------------------------------------------------------------------------
+# Correlated multi-asset rollouts (multitask vol GP)
+# ---------------------------------------------------------------------------
+
+
+def rollouts_multitask(generator, volt_state: VoltState, mt_vol_state,
+                       train_ys, test_x, nsample: int = 50, theta=None,
+                       assume_future: bool | None = None, noise=None):
+    """Autoregressive rollouts of ``T`` correlated assets: ``(T, nsample,
+    H)`` log-price paths.  The vol forecasts are joint across assets
+    through the Kronecker task covariance (on a strictly-future grid the
+    Matheron sampler, else the dense posterior through the ``(H T, H T)``
+    covariance); each asset's prices then follow the Markov scan.
+
+    ``volt_state`` carries the task axis as its batch
+    (:func:`~volt_tpu_torch.train.train_volt_multitask`); ``train_ys`` the
+    full ``(T, n+1)`` prices, read only for the mean-reversion target when
+    ``theta`` is set.  ``assume_future`` as :func:`sample_vol_paths`.
+    ``noise`` optionally gives the standard normals: ``{"vol_z": (S, n+H,
+    T), "vol_eps": (S, n, T)}`` for the Matheron sampler or ``{"vol": (S,
+    H T)}`` for the dense one, and ``"zs": (T, S, H)``."""
+    with torch.no_grad():
+        y = volt_state.train_y
+        num_tasks, h = y.shape[0], test_x.shape[-1]
+        fast = (isinstance(mt_vol_state.module.data_kernel, BMKernel)
+                and assume_future is not False
+                and (assume_future is True
+                     or _strictly_future(test_x, mt_vol_state.train_x)))
+        if fast:
+            log_vols = mt_vol_state.sample_forecast(
+                test_x, nsample, generator,
+                None if noise is None else (noise["vol_z"], noise["vol_eps"]))
+        else:
+            log_vols = mt_vol_state.sample(
+                test_x, (nsample,), generator,
+                None if noise is None else noise["vol"])
+        pred_vol = torch.exp(log_vols.movedim(-1, 0))  # (T, S, H)
+        zs = (_draw(generator, y, num_tasks, nsample, h) if noise is None
+              else noise["zs"])
+        use_theta = theta is not None
+        latent = (torch.mean(torch.log(train_ys.to(y.dtype)), dim=-1)
+                  if use_theta else torch.zeros(num_tasks, dtype=y.dtype,
+                                                device=y.device))
+        return _rollout_volt_scan(volt_state, latent, test_x, pred_vol, zs,
                                   use_theta, theta if use_theta else 0.0)
 
 

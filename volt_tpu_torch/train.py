@@ -9,7 +9,11 @@ package's defaults and the reference-style aliases.
                          (equispaced grids) or Kalman MLL (any grid);
 * ``train_data_model`` — stage 3: Adam(0.1) on the Volt MLL, log-linear
                          mean initialised from the data;
-* ``train_volt_magpie``— stage 3 with the mean selected by name.
+* ``train_volt_magpie``— stage 3 with the mean selected by name;
+* ``learn_gpcv_multitask`` / ``train_volt_multitask`` — the Kronecker
+                         multitask chain: one variational vol model over
+                         ``T`` assets, per-task Volt fits and one
+                         multitask vol GP.
 
 Each fit minimises the per-asset losses of a module that holds its own
 parameters, so leading batch (asset) dims train as independent fits.
@@ -24,12 +28,16 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch import nn
 
 from .convert import load_jax_params
 from .gp.natural import ngvi_tridiag_fit
+from .kernels import BMKernel
+from .likelihoods import VolatilityGaussianLikelihood
 from .means import LogLinearMean
 from .models.bmgp import BMGP, BMGPState
 from .models.gpcv import GPCVModel, GPCVState
+from .models.multitask import MultitaskBMGP, MultitaskVariationalGP
 from .models.volt import VoltGP, VoltState, make_mean
 from .ops.tridiag import brownian_noise_mll_kalman
 from .optim import Adam
@@ -180,8 +188,63 @@ def learn_gpcv_sparse(train_x, train_y, num_inducing: int = 256,
     return (pred_scale, state) if return_model else pred_scale
 
 
-def learn_gpcv_multitask(*args, **kwargs):
-    _not_ported("learn_gpcv_multitask", "slice D, item 20")
+class _Packed(nn.Module):
+    """The multitask GPCV's variational GP and likelihood trained as one
+    module: ``params_tree`` gives the JAX package's ``{"model": ...,
+    "lik": ...}``."""
+
+    def __init__(self, model: nn.Module, lik: nn.Module):
+        super().__init__()
+        self.model = model
+        self.lik = lik
+
+
+def _multitask_gpcv(train_x, yy, rank: int, q: str, param: str,
+                    generator, init_params):
+    """The multitask GPCV module initialised: ``init_params`` (a JAX
+    ``{"model", "lik"}`` tree) loaded as it is, else the random init from
+    ``generator`` then the Laplace init."""
+    lik = VolatilityGaussianLikelihood(param=param)
+    model = MultitaskVariationalGP(num_tasks=yy.shape[-1], rank=rank, q=q)
+    packed = _Packed(model, lik)
+    if init_params is not None:
+        return load_jax_params(packed, init_params, yy.device)
+    lik.init((), yy.dtype, yy.device, generator)
+    model.init(train_x, yy.dtype, generator)
+    model.initialize_variational_parameters(lik, train_x, yy)
+    return packed
+
+
+def _multitask_scale(packed):
+    """The multitask GPCV's predicted scale ``(T, n)``."""
+    with torch.no_grad():
+        model = packed.model
+        return packed.lik.expected_scale(model.variational_mean,
+                                         model.marginal_variances()).T
+
+
+def learn_gpcv_multitask(train_x, train_ys, train_iters: int = 1000,
+                         rank: int = 1, lr: float = 0.01,
+                         num_locs: int = 75, return_model: bool = False,
+                         generator=None, param: str = "exp",
+                         q: str = "full", init_params=None):
+    """Kronecker multitask GPCV: one variational vol model coupling ``T``
+    assets, ``train_ys (T, n+1)`` prices.  Adam on the ELBO of the
+    variational GP and the likelihood together; returns the per-task
+    predicted scales ``(T, n)``, and with ``return_model`` the fitted
+    ``(MultitaskVariationalGP, likelihood)``.  ``generator`` draws the
+    random init (the task factor, the variational mean, the cv triplets);
+    ``init_params`` (``{"model": ..., "lik": ...}``, e.g. the JAX
+    package's initialised parameters) replaces the whole init."""
+    yy = scaled_returns(train_x, train_ys).T  # (n, T)
+    packed = _multitask_gpcv(train_x, yy, rank, q, param, generator,
+                             init_params)
+    adam_loop(packed, lambda: -packed.model.elbo(train_x, yy, packed.lik,
+                                                 num_locs=num_locs),
+              train_iters, lr)
+    pred_scale = _multitask_scale(packed)
+    return (pred_scale, (packed.model, packed.lik)) if return_model \
+        else pred_scale
 
 
 # ---------------------------------------------------------------------------
@@ -204,6 +267,12 @@ def _is_equispaced(x) -> bool:
 
 def _fit_bmgp(module: BMGP, train_x, log_vol, iters: int, lr: float,
               spectral: bool):
+    """Adam on the vol GP's MLL: for the BM kernel the spectral (an
+    equispaced grid) or the Kalman form, for the FBM kernel the dense
+    one through the increment-domain factor."""
+    if not isinstance(module.kernel, BMKernel):
+        return adam_loop(module, lambda: -module.mll(train_x, log_vol),
+                         iters, lr)
     if spectral:
         cache = module.spectral_cache(train_x, log_vol)
         return adam_loop(module, lambda: -module.mll_spectral(cache), iters,
@@ -215,9 +284,10 @@ def _fit_bmgp(module: BMGP, train_x, log_vol, iters: int, lr: float,
 def train_vol_model(train_x, vol_path, train_iters: int = 1000,
                     printing: bool = False, kernel: str = "bm",
                     lr: float = 0.01, vol_mll: str | None = None) -> BMGPState:
-    """Fit the BM GP to ``log(vol_path)``.  ``vol_mll``: ``"spectral"``
-    (the caller asserts an equispaced grid), ``"kalman"`` (any grid) or
-    ``None`` (spectral iff the grid checks equispaced)."""
+    """Fit the vol GP to ``log(vol_path)``.  ``vol_mll`` (BM kernel):
+    ``"spectral"`` (the caller asserts an equispaced grid), ``"kalman"``
+    (any grid) or ``None`` (spectral iff the grid checks equispaced);
+    ``kernel="fbm"`` takes the dense MLL."""
     log_vol = torch.log(vol_path)
     if vol_mll is None:
         spectral = _is_equispaced(train_x)
@@ -306,8 +376,54 @@ def train_basic_model(*args, **kwargs):
     _not_ported("train_basic_model", "slice C, item 17")
 
 
-def train_volt_multitask(*args, **kwargs):
-    _not_ported("train_volt_multitask", "slice D, item 20")
+def _fit_multitask_vol(mt: MultitaskBMGP, train_x, log_vols_nt, iters: int,
+                       lr: float, spectral: bool):
+    """Adam on the multitask vol GP's MLL: the closed-form data spectrum
+    with the low-rank task blocks on an equispaced grid, else one
+    ``eigh`` of each factor a step."""
+    if spectral:
+        n, t = log_vols_nt.shape
+        cache = mt.spectral_cache(train_x, log_vols_nt)
+        return adam_loop(mt, lambda: -mt.mll_spectral(cache, n, t), iters,
+                         lr)
+    return adam_loop(mt, lambda: -mt.mll(train_x, log_vols_nt), iters, lr)
+
+
+def train_volt_multitask(train_x, train_ys, vol_paths, train_iters: int = 400,
+                         vol_iters: int = 400, k: int = 25,
+                         theta: float = 0.5, mean_func: str = "ewma",
+                         lr: float = 0.1, vol_lr: float = 0.01,
+                         rank: int = 1, printing: bool = False,
+                         generator=None, init_params=None):
+    """Per-task Volt price models and one Kronecker multitask vol GP over
+    the log vols (the reference's batched ``VoltronGP``, ``VoltronGP.py:
+    43-50``).  ``train_ys (T, n)`` prices on the return grid,
+    ``vol_paths (T, n)``.  Returns ``(volt_state, mt_vol_state)``; the Volt
+    state carries the task axis as its batch.  ``generator`` draws the task
+    factor's init; ``init_params`` (``{"volt": ..., "vol": ...}``, e.g. the
+    JAX package's) replaces the inits."""
+    log_ys = torch.log(train_ys)
+    num_tasks = log_ys.shape[0]
+    init_params = init_params or {}
+    volt = VoltGP(mean=make_mean(mean_func, k=k, theta=theta))
+    volt.init((num_tasks,), log_ys.dtype, log_ys.device, generator)
+    if "volt" in init_params:
+        load_jax_params(volt, init_params["volt"], log_ys.device)
+    losses = _fit_volt(volt, train_x, log_ys, vol_paths, train_iters, lr)
+    if printing:
+        print("data-model final losses:", losses[-1].tolist()
+              if train_iters else "(no iters)")
+    mt = MultitaskBMGP(num_tasks=num_tasks, rank=rank)
+    if "vol" in init_params:
+        load_jax_params(mt, init_params["vol"], log_ys.device)
+    else:
+        mt.init(log_ys.dtype, log_ys.device, generator)
+    log_vols_nt = torch.log(vol_paths).T  # (n, T)
+    _fit_multitask_vol(mt, train_x, log_vols_nt, vol_iters, vol_lr,
+                       _is_equispaced(train_x))
+    volt_state = VoltState(module=volt, train_x=train_x, train_y=log_ys,
+                           log_vol_path=torch.log(vol_paths))
+    return volt_state, mt.fit_state(train_x, log_vols_nt)
 
 
 # Reference-style aliases
