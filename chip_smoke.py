@@ -108,7 +108,28 @@ Phases, each printed with its time; any failure exits non-zero:
    n=16000 on the simulation's own step (the vol stage's projection is the
    FFT).  Checks: finite paths, every ``ok``, the vol band, K1 and S1
    launched;
-14. agreement on a small input: the card's run equals the CPU run (the
+14. ``baselines``: the baseline GPs, the LSTM and the paper's experiment
+   drivers at the published backtest settings, each item timed with its
+   launch counts and peak memory: ``generate_basic_predictions`` on the
+   ``AAA`` fixture (520 closes read from its CSV, 2 windows of ntrain=400,
+   600 Adam steps, 1000 paths of H=100) with a spectral mixture of 15 and
+   EWMA k=400 (the autoregressive ``nonvol_rollouts``) and with a scaled
+   Matérn and the log-linear mean (the joint posterior);
+   ``basic_wind_rollouts`` (RBF, EWMA k=200, 500 steps, 200 paths) and
+   ``wind_volt_window`` (constant mean, and EWMA k=400; 1000 paths, theta
+   0.01) on a ``wind_windows`` window; the LSTM at ``lstm_generator.py``'s
+   defaults on two ``AAA`` windows; ``run_multitask_wind`` on 4 synthetic
+   stations (H=126, k=400); ``forecast_generator.main`` over the fixtures
+   (``--kernel volt --ntimes 2 --save``).  The items run at PyTorch's
+   default precision, as their CLIs do (cuDNN's LSTM may use TF32; every
+   other phase and check runs with TF32 off).  Checks: shapes and finite
+   samples, the files under the JAX package's names, K1 launched in the
+   EWMA items and S1 in the constant-mean Volt fit, every K1 and S1
+   launch of the items at a shape that phase 1 holds against the plain
+   version, and the card's ``nonvol_rollouts`` against
+   ``nonvol_rollouts_dense`` on the same normals (S=64, H=10, atol 5e-4
+   per path);
+15. agreement on a small input: the card's run equals the CPU run (the
    plain versions, which the repository's tests hold against the JAX
    package): the main path within the pipeline parity tolerances; the
    dense family's Laplace init on ``S = R R^T`` (1e-3 of its largest
@@ -118,17 +139,21 @@ Phases, each printed with its time; any failure exits non-zero:
    strike; percentiles within 2 / S); the FBM pipeline (rtol 1e-2, the
    dense family's); the multitask pipeline (losses and vols rtol 1e-3,
    the fan 2e-3 / 1e-3); the FFT projection at n=16000 against a float64
-   CPU run (2e-6 of max|out|).
+   CPU run (2e-6 of max|out|); the basic GP's MLL and gradient (rtol 1e-4),
+   ``nonvol_rollouts`` (atol 1e-4 of max|y|), the LSTM forward (1e-5 with
+   TF32 off; 1e-2 at PyTorch's default, where cuDNN may use TF32) and
+   two LSTM training epochs (losses rtol 1e-4, TF32 off).
 
 Every phase prints its times with the card's name and power limit.  The
 vol band: recovered vol / true SABR vol, the median over series, inside
-(0.3, 3.5).  Launch counts are reset before each of phases 4-13 and read
+(0.3, 3.5).  Launch counts are reset before each of phases 4-13 (and each
+item of phase 14) and read
 after it; a kernel's ``launches`` is the count from the phase that drives
 its path, and ``launches_by_path`` its counts in the quantiles call of
 phase 4, in ``Volt().Train()`` alone (S1 must launch in both), in
-``price_options_batch``, in ``fbm_path``, in the cold ``multitask`` fit
-and in ``long_main_path``.  The second-to-last
-line is a JSON object with each kernel's launches, error, times, bound
+``price_options_batch``, in ``fbm_path``, in the cold ``multitask`` fit,
+in ``long_main_path`` and summed over the items of ``baselines``.  The
+second-to-last line is a JSON object with each kernel's launches, error, times, bound
 (``bound_ms``: the largest of its bytes over 3.35 TB/s, its operations
 over the H100's peak for their type and its special functions over the
 SFU's rate; ``bound_by`` says whether bytes or operations) and the
@@ -144,8 +169,8 @@ Two trees of the port against each other on one card::
 
 runs the named phases (``PHASES``: ``kernel_times``, ``kalman_times``,
 ``main_path``, ``gpcv_full``, ``gpcv_cv``, ``gpcv_sparse``,
-``option_pricing``, ``fbm_path``, ``multitask``, ``long_main_path``; a
-phase named twice runs twice, the first cold) in
+``option_pricing``, ``fbm_path``, ``multitask``, ``long_main_path``,
+``baselines``; a phase named twice runs twice, the first cold) in
 four fresh processes, in the trees parent, this one, this one, parent,
 each with its own package and kernels and this file's phases and
 timers.  It prints one JSON line per process and writes the
@@ -154,8 +179,11 @@ alone runs the phases in this tree, or in ``--package-root``.
 """
 
 import argparse
+import contextlib
+import copy
 import inspect
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -280,17 +308,26 @@ EWMA_TIMED = [((64, 999), 300), ((64, 999), 100), ((64, 999), 25),
               ((500, 999), 300), ((505, 999), 25)]
 
 
+# K1's checked shapes and k: the main path's, the edges, and the baselines
+# path's (the basic GP's MLL and the wind Volt window at k=400 >= T, the
+# wind baseline at k=200, the multitask wind stations, the CLI's k=100);
+# ``run_baselines`` fails on a launch of that path at a shape not here
+EWMA_CHECKED = [((64, 999), 20), ((64, 999), 100), ((64, 999), 300),
+                ((500, 999), 300), ((500, 999), 25), ((1, 5), 300),
+                ((2, 3, 37), 20), ((70000, 3), 2), ((16, 2100), 300),
+                ((1, 399), 400), ((1, 400), 200), ((4, 399), 400),
+                ((2, 399), 100)]
+
+
 def check_ewma(torch):
-    """K1 against the plain conv1d on the card: a float64 run of it at
-    1e-6 max|y| (K1 runs its recurrence in float64) and the float32 run at
-    1e-5 max|y|."""
+    """K1 against the plain conv1d on the card at EWMA_CHECKED: a float64
+    run of it at 1e-6 max|y| (K1 runs its recurrence in float64) and the
+    float32 run at 1e-5 max|y|."""
     from volt_tpu_torch.ops.ewma import _ewma_conv, ewma
 
     g = torch.Generator(device="cuda").manual_seed(0)
     worst = 0.0
-    for shape, k in [((64, 999), 20), ((64, 999), 100), ((64, 999), 300),
-                     ((500, 999), 300), ((500, 999), 25), ((1, 5), 300),
-                     ((2, 3, 37), 20), ((70000, 3), 2), ((16, 2100), 300)]:
+    for shape, k in EWMA_CHECKED:
         y = _log_prices(torch, g, shape)
         got = ewma(y, k)
         err64 = (got.double() - _ewma_conv(y.double(), k)).abs().max().item()
@@ -357,9 +394,11 @@ def time_ewma(torch):
 
 # S1's check shapes: the main path, the reference API, the edges, ROADMAP
 # item 9's B=500, n=16000 (16 tiles of the kernel's carry; the
-# long_main_path phase) and the multitask path's T=505
+# long_main_path phase), the multitask path's T=505 and the baselines
+# path's (the wind Volt window, the CLI's two windows, the multitask wind
+# stations)
 KALMAN_SHAPES = [(64, 999), (1, 999), (3, 1), (5, 33), (500, 999),
-                 (505, 999), (16, 16000)]
+                 (505, 999), (16, 16000), (1, 399), (2, 399), (4, 399)]
 KALMAN_TIMED = [(64, 999), (1, 999), (500, 999), (505, 999), (16, 16000)]
 
 
@@ -1179,6 +1218,383 @@ def run_long_main_path(torch, vt, native, dev="cuda", b=16, n=16000, h=100,
                       "ok": int(aux["ok"].sum()), "vol_ratio": ratio}
 
 
+K1_SYM = "volt_ewma_filter"
+S1_SYMS = ("volt_kalman_forward", "volt_kalman_backward")
+
+
+def _timed(torch, dev, native, fn):
+    """``fn()``, its seconds and the launch counts it made (reset first)."""
+    native.launches.clear()
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(torch, dev)
+    return out, time.perf_counter() - t0, dict(native.launches)
+
+
+def _check_saved(what, outdir, names, shape):
+    """The files ``names`` under ``outdir``, and nothing else, each finite
+    of ``shape``."""
+    import numpy as np
+
+    got = sorted(p.name for p in Path(outdir).iterdir())
+    if got != sorted(names):
+        fail(f"{what}: wrote {got}, expected {sorted(names)}")
+    for name in names:
+        arr = np.load(Path(outdir) / name)
+        if arr.shape != shape or not np.isfinite(arr).all():
+            fail(f"{what}: {name} has shape {arr.shape} or non-finite "
+                 "values")
+
+
+def _check_paths(torch, what, paths, shape):
+    if tuple(paths.shape) != shape or not torch.isfinite(paths).all():
+        fail(f"{what}: samples {tuple(paths.shape)} (want {shape}) or "
+             "non-finite")
+
+
+@contextlib.contextmanager
+def _launch_shapes(native, seen):
+    """Add each K1 launch's ``(symbol, rows, T, k)`` and each S1 launch's
+    ``(symbol, B, n)`` to the set ``seen`` while open."""
+    launch = native.launch
+
+    def recording(symbol, *args, device):
+        if symbol == K1_SYM:
+            seen.add((symbol, *args[2:5]))
+        elif symbol in S1_SYMS:
+            seen.add((symbol, *args[-2:]))
+        return launch(symbol, *args, device=device)
+
+    native.launch = recording
+    try:
+        yield seen
+    finally:
+        native.launch = launch
+
+
+def _checked_shapes():
+    """The launch shapes, as :func:`_launch_shapes` records them, at which
+    the kernels phase holds K1 (EWMA_CHECKED) and S1 (KALMAN_SHAPES)
+    against their plain versions."""
+    k1 = {(K1_SYM, math.prod(shape[:-1]), shape[-1], k)
+          for shape, k in EWMA_CHECKED}
+    return k1 | {(sym, b, n) for b, n in KALMAN_SHAPES for sym in S1_SYMS}
+
+
+@contextlib.contextmanager
+def _default_precision(torch):
+    """PyTorch's default float32 precision while open: TF32 allowed in
+    cuDNN, not in matmuls (``setup`` turns both off for the kernel
+    checks)."""
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+
+
+def run_baselines(torch, vt, native, dev="cuda", ntrain=400, h=100,
+                  basic_iters=600, nsample=1000, wind_iters=500,
+                  wind_nsample=200, lstm_epochs=200, lstm_hidden=128,
+                  lstm_h=20, mt_h=126, fg_train_iters=300, dense_s=64,
+                  dense_h=10):
+    """The baselines and the paper's experiment drivers at the published
+    backtest settings, at PyTorch's default precision as their CLIs run
+    (each item's launch counts reset before it, each K1 and S1 launch's
+    shape checked to be one that ``check_ewma`` / ``check_kalman`` hold
+    against the plain version):
+
+    1. ``generate_basic_predictions`` on the ``AAA`` fixture (520 closes,
+       read from its CSV) with a spectral mixture of 15 and an EWMA k=400
+       mean: 600 Adam steps, 1000 autoregressive paths of 100 steps,
+       ntrain=400, 2 windows;
+    2. the same with a scaled Matérn and the log-linear mean (the joint
+       posterior in one shot);
+    3. ``basic_wind_rollouts`` (RBF, EWMA k=200, 500 steps, 200 paths) on
+       one ``wind_windows`` window of ntrain=400, H=100;
+    4. ``wind_volt_window`` with the constant mean (S1) and EWMA k=400
+       (K1), 1000 paths, theta=0.01;
+    5. the LSTM at ``lstm_generator.py``'s defaults (window 25, hidden
+       128, one layer, 200 epochs, batch 128) on two windows of ``AAA``,
+       1000 paths of 20 steps;
+    6. ``run_multitask_wind`` on the 4 synthetic stations, ntrain=400,
+       H=126, 1000 paths, k=400;
+    7. ``forecast_generator.main`` over the fixtures with ``--kernel volt
+       --ntimes 2 --save``;
+
+    then the card's ``nonvol_rollouts`` against ``nonvol_rollouts_dense``
+    on the same normals (item 1's first window, S=64, H=10, atol 5e-4 per
+    path).  Keyword sizes shrink it for a rehearsal on the CPU."""
+    import io
+    import tempfile
+
+    import numpy as np
+
+    from volt_tpu_torch.data import fixtures_dir, universes
+    from volt_tpu_torch.experiments import (basic_wind_rollouts,
+                                            generate_basic_predictions,
+                                            run_multitask_wind)
+    from volt_tpu_torch.experiments import forecast_generator as fg
+    from volt_tpu_torch.experiments.basic_wind import make_basic_model
+    from volt_tpu_torch.experiments.generate_preds import rolling_windows
+    from volt_tpu_torch.experiments.gp_generator import (load_wind,
+                                                         wind_volt_window)
+    from volt_tpu_torch.models.lstm import train_lstm
+    from volt_tpu_torch.rollouts import (nonvol_rollouts,
+                                         nonvol_rollouts_dense)
+
+    fix = fixtures_dir()
+    tmp = tempfile.TemporaryDirectory()
+    out = Path(tmp.name)
+    prices, dates = fg.load_prices("AAA", 520, csv_dir=fix)
+    if dates is None or len(prices) != 520:
+        fail("baselines: load_prices did not read the AAA fixture's CSV")
+    ends = rolling_windows(prices, ntrain, 2)
+    labels = [dates[e] for e in ends]
+    g = torch.Generator(device=dev).manual_seed(11)
+    items, launches = {}, {}
+
+    def record(name, secs, counts, extra=None):
+        items[name] = {"s": secs, "launches": counts, **(extra or {})}
+        launches[name] = counts
+        print(f"   {name}: {secs:.3f} s; launches {counts}; peak "
+              f"{_peak_gib(torch, dev):.2f} GiB allocated ({CARD})",
+              flush=True)
+
+    # the items run as their CLIs do, at PyTorch's default precision
+    # (cuDNN's LSTM may use TF32), and each K1 and S1 launch's shape is
+    # recorded
+    seen = set()
+    with _launch_shapes(native, seen), _default_precision(torch):
+        for kname, mean in (("sm", "ewma"), ("matern", "loglinear")):
+            _reset_peak(torch, dev)
+            res, secs, counts = _timed(torch, dev, native, lambda: (
+                generate_basic_predictions(
+                    "AAA", prices, kname, dates=dates, mean_name=mean, k=400,
+                    forecast_horizon=h, train_iters=basic_iters,
+                    nsample=nsample, ntrain=ntrain, save=True, ntimes=2,
+                    outdir=str(out / kname), generator=g, device=dev)))
+            record(f"basic_{kname}_{mean}", secs, counts,
+                   {"peak_gib": _peak_gib(torch, dev)})
+            if list(res) != labels:
+                fail(f"basic {kname}: windows {list(res)}, expected "
+                     f"{labels}")
+            _check_saved(f"basic {kname}", out / kname / "AAA",
+                         [f"{kname}_{mean}400_{lb}.npy" for lb in labels],
+                         (nsample, h))
+        if dev == "cuda" and launches["basic_sm_ewma"].get(K1_SYM, 0) < 1:
+            fail("basic sm/ewma: K1 was not launched")
+
+        rng = np.random.default_rng(0)
+        wind = universes.wind_windows(rng, 1, ntrain, h)[0]
+        wx = torch.arange(ntrain, dtype=torch.float32, device=dev) / 365
+        wtest = torch.arange(ntrain, ntrain + h, dtype=torch.float32,
+                             device=dev) / 365
+        _reset_peak(torch, dev)
+        paths, secs, counts = _timed(torch, dev, native, lambda: (
+            basic_wind_rollouts(wx, wind[:ntrain], wtest, "rbf", "ewma",
+                                k=200, train_iters=wind_iters,
+                                nsample=wind_nsample, generator=g,
+                                device=dev)))
+        record("basic_wind_rbf_ewma", secs, counts,
+               {"peak_gib": _peak_gib(torch, dev)})
+        _check_paths(torch, "basic_wind_rollouts", paths,
+                     (wind_nsample, h))
+        if dev == "cuda" and counts.get(K1_SYM, 0) < 1:
+            fail("basic_wind_rollouts: K1 was not launched")
+
+        for mean, syms in (("constant", S1_SYMS), ("ewma", (K1_SYM,))):
+            _reset_peak(torch, dev)
+            paths, secs, counts = _timed(torch, dev, native, lambda: (
+                wind_volt_window(wx[:-1], wind[:ntrain], wtest, mean,
+                                 nsample=nsample, theta=0.01, k=400,
+                                 generator=g, device=dev)))
+            record(f"wind_volt_{mean}", secs, counts,
+                   {"peak_gib": _peak_gib(torch, dev)})
+            _check_paths(torch, f"wind_volt_window({mean})", paths,
+                         (nsample, h))
+            for sym in syms:
+                if dev == "cuda" and counts.get(sym, 0) < 1:
+                    fail(f"wind_volt_window({mean}): {sym} was not "
+                         "launched")
+
+        def lstm_windows():
+            res = []
+            for e in ends:
+                log_y = np.log(prices[e - ntrain:e].astype(np.float32))
+                st = train_lstm(log_y, seq_len=25, hidden_size=lstm_hidden,
+                                num_layers=1, epochs=lstm_epochs,
+                                batch_size=128, generator=g, device=dev)
+                res.append(st.forecast(g, lstm_h, nsample))
+            return res
+
+        _reset_peak(torch, dev)
+        fcs, secs, counts = _timed(torch, dev, native, lstm_windows)
+        record("lstm", secs, counts, {"peak_gib": _peak_gib(torch, dev)})
+        for fc, e in zip(fcs, ends):
+            _check_paths(torch, "lstm forecast", fc, (nsample, lstm_h))
+        # the forecast is of the log price: its median path starts near
+        # the window's last log price
+        start = [abs(float(fc[:, 0].median())
+                     - float(np.log(prices[e - 1])))
+                 for fc, e in zip(fcs, ends)]
+        print(f"   lstm: |median first step - last log price| {start}")
+        if not max(start) < 0.1:
+            fail("lstm: the forecast starts far from the series")
+
+        names, _, data = load_wind("", synthetic=True)
+        _reset_peak(torch, dev)
+        res, secs, counts = _timed(torch, dev, native, lambda: (
+            run_multitask_wind(names, data, ntrain=ntrain,
+                               forecast_horizon=mt_h, nsample=nsample,
+                               k=400, generator=g, device=dev)))
+        record("multitask_wind", secs, counts,
+               {"peak_gib": _peak_gib(torch, dev)})
+        xp = torch.as_tensor(res["x_paths"])
+        _check_paths(torch, "run_multitask_wind", xp,
+                     (len(data), nsample, mt_h))
+        if res["names_list"] != [names[i] for i in range(len(data))]:
+            fail(f"run_multitask_wind: stations {res['names_list']}")
+
+        argv = ["--ticker_fname", str(Path(fix) / "offline_tickers"),
+                "--csv_dir", fix, "--kernel", "volt", "--ntimes", "2",
+                "--save",
+                "--ntrain", str(ntrain), "--nsample", str(nsample),
+                "--forecast_horizon", str(h), "--train_iters",
+                str(fg_train_iters), "--outdir", str(out / "cli"),
+                "--device", dev]
+        buf = io.StringIO()
+        _reset_peak(torch, dev)
+        with contextlib.redirect_stdout(buf):
+            _, secs, counts = _timed(torch, dev, native, lambda: fg.main(
+                fg.build_parser().parse_args(argv)))
+        text = buf.getvalue()
+        record("forecast_generator", secs, counts,
+               {"peak_gib": _peak_gib(torch, dev)})
+        if "FAILED" in text or "done AAA" not in text or \
+                "done BBB" not in text:
+            fail(f"forecast_generator.main: {text.strip()}")
+        for tckr in ("AAA", "BBB"):
+            p, d = fg.load_prices(tckr, ntrain + 500, csv_dir=fix)
+            _check_saved(f"forecast_generator {tckr}", out / "cli" / tckr,
+                         [f"volt_ewma100_{d[e]}.npy"
+                          for e in rolling_windows(p, ntrain, 2)],
+                         (nsample, h))
+
+    unchecked = sorted(seen - _checked_shapes())
+    print(f"   K1 and S1 launch shapes on the path: {sorted(seen)}")
+    if unchecked:
+        fail(f"baselines: K1 or S1 launched at shapes that the kernels "
+             f"phase does not hold against their plain versions: "
+             f"{unchecked}")
+
+    # the grown-Cholesky rollout against the dense loop, item 1's model
+    x, test_x = grids(torch, ntrain - 1, dense_h, dev)
+    log_y = torch.log(torch.tensor(prices[ends[0] - ntrain:ends[0]],
+                                   device=dev))[1:]
+    model = make_basic_model(x, log_y, "sm", "ewma", 400, basic_iters,
+                             num_mixtures=15, generator=g)
+    zs = torch.randn(dense_s, dense_h, device=dev, generator=g)
+    t0 = time.perf_counter()
+    fast = nonvol_rollouts(None, model, x, None, test_x, dense_s, zs=zs)
+    _sync(torch, dev)
+    t1 = time.perf_counter()
+    slow = nonvol_rollouts_dense(None, model, test_x, dense_s, zs=zs)
+    _sync(torch, dev)
+    err = (fast - slow).abs().max().item()
+    print(f"   nonvol_rollouts (S={dense_s}, H={dense_h}) {t1 - t0:.4f} s "
+          f"against nonvol_rollouts_dense {time.perf_counter() - t1:.4f} s:"
+          f" max abs diff {err:.3e} (tol 5e-4)")
+    if not err <= 5e-4 or not torch.isfinite(slow).all():
+        fail("nonvol_rollouts disagrees with nonvol_rollouts_dense")
+    items["nonvol_dense_err"] = err
+    tmp.cleanup()
+    total = {}
+    for counts in launches.values():
+        for sym, c in counts.items():
+            total[sym] = total.get(sym, 0) + c
+    return total, items
+
+
+def check_small_agreement_baselines(torch, vt):
+    """Card against CPU on small inputs: the basic GP's MLL and gradient
+    (spectral mixture, EWMA mean: K1 on the card), the baselines' rollout
+    on the same normals, and the LSTM forward and two training epochs on
+    the same initial values and permutations (TF32 off; the forward also
+    at PyTorch's default precision, as the LSTM CLI runs)."""
+    from volt_tpu_torch.models import SMGP
+    from volt_tpu_torch.models.lstm import _Net, _train
+    from volt_tpu_torch.means import EWMAMean
+    from volt_tpu_torch.rollouts import nonvol_rollouts
+
+    f, _ = vt.data.sabr_paths(steps=61, seed=5, F0=50.0)
+    y = torch.log(torch.tensor(f[1:]))
+    x, test_x = grids(torch, 60, 8, "cpu")
+    cpu = SMGP(5, EWMAMean(20)).init(generator=torch.Generator()
+                                     .manual_seed(0))
+    cpu.kernel.initialize_from_data(x, y, torch.Generator().manual_seed(1))
+    card = copy.deepcopy(cpu).cuda()
+    vals, grads = {}, {}
+    for dev, mod in (("cpu", cpu), ("cuda", card)):
+        mll = mod.mll(x.to(dev), y.to(dev))
+        mll.backward()
+        vals[dev] = mll.item()
+        grads[dev] = torch.cat([p.grad.reshape(-1).cpu()
+                                for p in mod.parameters()])
+    rel = abs(vals["cuda"] - vals["cpu"]) / abs(vals["cpu"])
+    grel = ((grads["cuda"] - grads["cpu"]).abs().max()
+            / grads["cpu"].abs().max()).item()
+    print(f"   basic GP MLL card vs CPU: rel {rel:.2e}, gradient rel "
+          f"{grel:.2e} (tol 1e-4)")
+    if not (rel <= 1e-4 and grel <= 1e-4):
+        fail("the basic GP's MLL or gradient differs between card and CPU")
+
+    zs = torch.randn(16, 8, generator=torch.Generator().manual_seed(2))
+    with torch.no_grad():
+        paths = {dev: nonvol_rollouts(None, mod.fit_state(x.to(dev),
+                                                           y.to(dev)),
+                                      None, None, test_x.to(dev), 16,
+                                      zs=zs.to(dev)).cpu()
+                 for dev, mod in (("cpu", cpu), ("cuda", card))}
+    err = (paths["cuda"] - paths["cpu"]).abs().max().item()
+    print(f"   nonvol_rollouts card vs CPU: max abs diff {err:.2e} (tol "
+          f"1e-4 max|y| = {1e-4 * y.abs().max().item():.2e})")
+    if not err <= 1e-4 * y.abs().max().item():
+        fail("nonvol_rollouts differs between card and CPU")
+
+    net = _Net(25, 16, 2).init_flax(torch.Generator().manual_seed(3))
+    wins = torch.randn(32, 25, generator=torch.Generator().manual_seed(4))
+    gnet = copy.deepcopy(net).cuda()
+    with torch.no_grad():
+        err = (gnet(wins.cuda()).cpu() - net(wins)).abs().max().item()
+    print(f"   LSTM forward card vs CPU: max abs diff {err:.2e} (tol 1e-5)")
+    if not err <= 1e-5:
+        fail("the LSTM forward differs between card and CPU")
+    # at PyTorch's default precision, as the LSTM CLI runs, cuDNN may
+    # round the LSTM's matmul inputs to TF32 (10 mantissa bits, 2^-11
+    # relative a factor)
+    with torch.no_grad(), _default_precision(torch):
+        err = (gnet(wins.cuda()).cpu() - net(wins)).abs().max().item()
+    print(f"   LSTM forward card (cuDNN TF32 allowed) vs CPU: max abs diff "
+          f"{err:.2e} (tol 1e-2)")
+    if not err <= 1e-2:
+        fail("the LSTM forward at the default precision differs between "
+             "card and CPU")
+    perms = torch.stack([torch.randperm(59, generator=torch.Generator()
+                                        .manual_seed(5 + e))
+                         for e in range(2)])
+    lc = _train(net, y, 25, 2, 16, 0.01, None, perms)[3]
+    lg = _train(gnet, y.cuda(), 25, 2, 16, 0.01, None, perms)[3].cpu()
+    rel = ((lg - lc).abs() / lc.abs()).max().item()
+    print(f"   LSTM training losses card vs CPU: rel {rel:.2e} (tol 1e-4)")
+    if not rel <= 1e-4:
+        fail("LSTM training differs between card and CPU")
+
+
 EXPIRY_STEPS = (4, 20, 62, 99)
 
 
@@ -1372,6 +1788,7 @@ def check_small_agreement(torch, vt):
         fail("small input: price_options_batch differs between card and CPU")
 
     check_small_agreement_slice_d(torch, vt, f, noise, n, h, s)
+    check_small_agreement_baselines(torch, vt)
 
 
 def check_small_agreement_slice_d(torch, vt, f, noise, n, h, s):
@@ -1481,6 +1898,8 @@ def setup(package_root=None):
     print(card)
     print(f"   torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}; {Path(vt.__file__).parent}")
+    # true float32 for the checks against the plain versions (the
+    # baselines' items restore PyTorch's defaults, as their CLIs run)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     done(t0)
@@ -1559,6 +1978,11 @@ def smoke():
     long_launches, long_main = run_long_main_path(torch, vt, native)
     done(t0)
 
+    t0 = phase("baselines: the baseline GPs, the LSTM and the experiment "
+               "drivers at the published backtest settings")
+    base_launches, baselines = run_baselines(torch, vt, native)
+    done(t0)
+
     for k in kernels:
         path, counts = paths[k["name"]]
         k["path"] = path
@@ -1570,7 +1994,8 @@ def smoke():
             "price_options_batch": pricing_launches.get(sym, 0),
             "fbm_path": fbm_launches.get(sym, 0),
             "multitask": mt_launches.get(sym, 0),
-            "long_main_path": long_launches.get(sym, 0)}
+            "long_main_path": long_launches.get(sym, 0),
+            "baselines": base_launches.get(sym, 0)}
         if k["launches"] < 1:
             fail(f"kernel {k['name']} was not launched by its path ({path})")
 
@@ -1583,7 +2008,8 @@ def smoke():
                       "gpcv_full": gpcv_full, "gpcv_cv": gpcv_cv,
                       "gpcv_sparse": gpcv_sparse,
                       "option_pricing": pricing, "fbm_path": fbm,
-                      "multitask": multitask, "long_main_path": long_main}))
+                      "multitask": multitask, "long_main_path": long_main,
+                      "baselines": baselines}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1610,6 +2036,8 @@ PHASES = {
                                                          native)[1],
     "long_main_path": lambda torch, vt, native: run_long_main_path(
         torch, vt, native)[1],
+    "baselines": lambda torch, vt, native: run_baselines(torch, vt,
+                                                         native)[1],
 }
 PHASES_TAG = "chip_smoke phases: "
 

@@ -15,24 +15,11 @@ import volt_tpu_torch
 
 # name -> the ROADMAP.md item that ports it, or why the port leaves it out
 NOT_YET = {
-    # item 17: the baseline kernels, models and trainer
-    **dict.fromkeys(("OUKernel", "RBFKernel", "MaternKernel", "ScaleKernel",
-                     "SpectralMixtureKernel", "BasicGP", "BasicGPState",
-                     "MaternGP", "SMGP", "train_basic_model",
-                     "TrainBasicModel"), "item 17"),
-    # item 18: the LSTM baseline
-    **dict.fromkeys(("LSTMModel", "train_lstm", "LSTM"), "item 18"),
-    # item 19: the baselines' rollouts
-    **dict.fromkeys(("nonvol_rollouts", "nonvol_rollouts_dense"), "item 19"),
     # item 23: the mesh
     **dict.fromkeys(("make_mesh", "multihost_initialize", "shard_batch"),
                     "item 23"),
-    # item 5: the associative-scan forms and the rest of data/
-    **dict.fromkeys(("tridiag_solve", "brownian_noise_mll",
-                     "make_ticker_list", "ticker_file_path",
-                     "corrvol_windows", "gbm_windows", "gusty_wind_windows",
-                     "sabr_windows", "wind_windows", "fixtures_dir"),
-                    "item 5"),
+    # item 5: the associative-scan forms
+    **dict.fromkeys(("tridiag_solve", "brownian_noise_mll"), "item 5"),
     # "Do not port": only the JAX package's tests use the fixed-covariance
     # MLL; the port builds the spectral basis with int64 angles, so the
     # JAX package's int32 bound on n does not apply
@@ -79,10 +66,16 @@ def test_reference_name_aliases():
 
 def test_not_yet_names_are_absent_or_stubs():
     """A name listed as not ported is not silently exported as working:
-    where the port has it, calling it raises ``NotImplementedError``
-    naming its ROADMAP item."""
-    from volt_tpu_torch import train
+    no module of the port has it (the last stub, ``train_basic_model``,
+    went when the baselines were ported); the baselines' names are
+    exported where the JAX package exports them."""
+    for port, _ in _pairs():
+        mod = importlib.import_module(port)
+        present = [n for n in NOT_YET if hasattr(mod, n)]
+        assert not present, f"{port} has {present}"
+    from volt_tpu_torch import models, train
 
-    with pytest.raises(NotImplementedError, match="item 17"):
-        train.train_basic_model()
-    assert not hasattr(volt_tpu_torch, "nonvol_rollouts")
+    assert volt_tpu_torch.nonvol_rollouts is volt_tpu_torch.rollouts \
+        .nonvol_rollouts
+    assert train.TrainBasicModel is train.train_basic_model
+    assert models.LSTM is models.LSTMModel

@@ -485,3 +485,102 @@ def test_small_multitask_pipeline_card_matches_cpu(cuda):
         torch.testing.assert_close(aux_g[key].cpu(), aux_c[key], rtol=1e-3,
                                    atol=0.0)
     torch.testing.assert_close(fan_g.cpu(), fan_c, rtol=2e-3, atol=1e-3)
+
+
+def _basic_pair(mean_k=20, n=60):
+    """A spectral-mixture baseline with an EWMA mean on a SABR series, on
+    the CPU and (a copy) on the card."""
+    import copy
+
+    from volt_tpu_torch.means import EWMAMean
+    from volt_tpu_torch.models import SMGP
+
+    x, f = _sabr(1, n, 14)
+    y = torch.log(f.reshape(-1)[1:])
+    cpu = SMGP(5, EWMAMean(mean_k)).init(
+        generator=torch.Generator().manual_seed(0))
+    cpu.kernel.initialize_from_data(x, y, torch.Generator().manual_seed(1))
+    return x, y, cpu, copy.deepcopy(cpu).cuda()
+
+
+def test_basic_gp_mll_card_matches_cpu(cuda):
+    """The baseline's exact MLL and gradient (K1 for the EWMA mean, the
+    (n, n, q) spectral-mixture build, a cuSOLVER factor) against the CPU
+    at rtol 1e-4."""
+    x, y, cpu, card = _basic_pair()
+    before = native.launches["volt_ewma_filter"]
+    out = {}
+    for dev, mod in (("cpu", cpu), ("cuda", card)):
+        mll = mod.mll(x.to(dev), y.to(dev))
+        mll.backward()
+        out[dev] = (mll.detach().cpu(), torch.cat(
+            [p.grad.reshape(-1).cpu() for p in mod.parameters()]))
+    assert native.launches["volt_ewma_filter"] > before
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-4,
+                               atol=0.0)
+    torch.testing.assert_close(out["cuda"][1], out["cpu"][1], rtol=1e-4,
+                               atol=1e-4 * out["cpu"][1].abs().max().item())
+
+
+def test_nonvol_rollouts_on_the_card(cuda):
+    """The grown-Cholesky rollout on the card equals the dense loop on the
+    card and the CPU run, on the same normals, at atol 1e-4 max|y|."""
+    from volt_tpu_torch.rollouts import nonvol_rollouts, nonvol_rollouts_dense
+
+    x, y, cpu, card = _basic_pair()
+    test_x = x[-1] + torch.arange(1, 9) / 252.0
+    zs = torch.randn(16, 8, generator=torch.Generator().manual_seed(2))
+    tol = 1e-4 * y.abs().max().item()
+    gstate = card.fit_state(x.cuda(), y.cuda())
+    got = nonvol_rollouts(None, gstate, None, None, test_x.cuda(), 16,
+                          zs=zs.cuda())
+    dense = nonvol_rollouts_dense(None, gstate, test_x.cuda(), 16,
+                                  zs=zs.cuda())
+    want = nonvol_rollouts(None, cpu.fit_state(x, y), None, None, test_x, 16,
+                           zs=zs)
+    torch.testing.assert_close(got.cpu(), dense.cpu(), rtol=0.0, atol=tol)
+    torch.testing.assert_close(got.cpu(), want, rtol=0.0, atol=tol)
+
+
+def test_lstm_card_matches_cpu(cuda):
+    """The LSTM forward (cuDNN against the CPU, TF32 off) at 1e-5, and two
+    training epochs on the same initial values and permutations (losses
+    rtol 1e-4)."""
+    import copy
+
+    from volt_tpu_torch.models.lstm import _Net, _train
+
+    net = _Net(25, 16, 2).init_flax(torch.Generator().manual_seed(3))
+    gnet = copy.deepcopy(net).cuda()
+    wins = torch.randn(32, 25, generator=torch.Generator().manual_seed(4))
+    with torch.no_grad():
+        torch.testing.assert_close(gnet(wins.cuda()).cpu(), net(wins),
+                                   rtol=1e-5, atol=1e-6)
+    _, f = _sabr(1, 60, 15)
+    y = torch.log(f.reshape(-1))
+    perms = torch.stack([torch.randperm(60, generator=torch.Generator()
+                                        .manual_seed(5 + e))
+                         for e in range(2)])
+    lc = _train(net, y, 25, 2, 16, 0.01, None, perms)[3]
+    lg = _train(gnet, y.cuda(), 25, 2, 16, 0.01, None, perms)[3]
+    torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=0.0)
+
+
+def test_baseline_drivers_on_the_card(cuda, tmp_path):
+    """The drivers at a tiny size on their default device, the card."""
+    from volt_tpu_torch.experiments import (basic_wind_rollouts,
+                                            generate_basic_predictions)
+
+    _, f = _sabr(1, 139, 16)
+    f = f.reshape(-1)
+    out = generate_basic_predictions(
+        "T", f.numpy(), "sm", mean_name="ewma", k=20, forecast_horizon=4,
+        train_iters=10, nsample=6, ntrain=100, ntimes=2, save=True,
+        outdir=str(tmp_path))
+    assert len(out) == 2 and len(list((tmp_path / "T").iterdir())) == 2
+    for s in out.values():
+        assert s.shape == (6, 4) and torch.isfinite(torch.as_tensor(s)).all()
+    x = torch.arange(60) / 365.0
+    s = basic_wind_rollouts(x, f[:60] / f[0], x[-1] + x[1:5], "rbf",
+                            mean_name="constant", train_iters=10, nsample=8)
+    assert s.shape == (8, 4) and s.is_cuda and torch.isfinite(s).all()

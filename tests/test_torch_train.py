@@ -151,8 +151,16 @@ def test_aliases_and_unported_entries(data):
     assert got.shape == (2, N) and torch.isfinite(got).all()
     volt, mt = ttrain.train_volt_multitask(t32(x), fs[:, 1:], got, 2, 2)
     assert volt.train_y.shape == (2, N) and mt.train_y.shape == (N, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttrain.train_basic_model(t32(x), t32(f))
+    got = ttrain.TrainBasicModel(t32(x), t32(f[1:]), 2)
+    assert got.train_y.shape == (N,) and torch.isfinite(
+        got.module.mll(got.train_x, got.train_y))
+    # train_iters=0 fits nothing and returns no losses, as JAX's scan
+    assert ttrain.adam_loop(got.module, lambda: got.module.mll(
+        got.train_x, got.train_y), 0, 0.1).shape == (0,)
+    batched = torch.nn.Module()
+    batched.p = torch.nn.Parameter(torch.ones(2, dtype=torch.float64))
+    empty = ttrain.adam_loop(batched, lambda: batched.p ** 2, 0, 0.1)
+    assert empty.shape == (0, 2) and empty.dtype == torch.float64
     assert Volt(t32(x), torch.zeros(2, N)).batched
     with pytest.raises(ValueError):
         ttrain.learn_gpcv(t32(x), t32(f), 2, q="full", opt="ngvi")

@@ -20,9 +20,13 @@ option layer: :mod:`volt_tpu_torch.options`,
 family (``PipelineConfig(kernel="fbm")``); and the Kronecker multitask
 chain (:mod:`volt_tpu_torch.gp.kronecker`,
 :mod:`volt_tpu_torch.models.multitask`,
-:func:`volt_tpu_torch.parallel.fit_forecast_multitask`).  Not yet: the
-baselines (``train_basic_model``, ``nonvol_rollouts``), the mesh and the
-edges (ROADMAP.md).
+:func:`volt_tpu_torch.parallel.fit_forecast_multitask`); the baselines
+(the stationary kernels, :mod:`volt_tpu_torch.models.basic`,
+``train_basic_model``, ``nonvol_rollouts``, the LSTM of
+:mod:`volt_tpu_torch.models.lstm`); the data edges of
+:mod:`volt_tpu_torch.data` and the backtest drivers and CLIs of
+:mod:`volt_tpu_torch.experiments`.  Not yet: the mesh, checkpoints and
+profiling, the examples (ROADMAP.md).
 """
 
 __version__ = "0.2.0"
@@ -37,13 +41,14 @@ from .parallel import (MultitaskPipelineConfig, PipelineConfig, fit_forecast,
                        warm_start_multitask)
 from .rollouts import generate_prediction
 from .rollouts import generate_prediction as GeneratePrediction
-from .rollouts import mean_prediction
+from .rollouts import mean_prediction, nonvol_rollouts
 from .rollouts import rollouts as Rollouts
 from .rollouts import (rollouts_multitask, sample_prediction,
                        sample_vol_paths, volt_posterior)
-from .train import (LearnGPCV, TrainDataModel, TrainVolModel,
-                    TrainVoltMagpieModel, learn_gpcv, learn_gpcv_multitask,
-                    learn_gpcv_sparse, train_data_model, train_vol_model,
+from .train import (LearnGPCV, TrainBasicModel, TrainDataModel,
+                    TrainVolModel, TrainVoltMagpieModel, learn_gpcv,
+                    learn_gpcv_multitask, learn_gpcv_sparse,
+                    train_basic_model, train_data_model, train_vol_model,
                     train_volt_magpie, train_volt_multitask)
 
 __all__ = [
@@ -68,10 +73,12 @@ __all__ = [
     "train_data_model",
     "train_volt_magpie",
     "train_volt_multitask",
+    "train_basic_model",
     "LearnGPCV",
     "TrainVolModel",
     "TrainDataModel",
     "TrainVoltMagpieModel",
+    "TrainBasicModel",
     "Rollouts",
     "GeneratePrediction",
     "sample_vol_paths",
@@ -79,6 +86,7 @@ __all__ = [
     "sample_prediction",
     "mean_prediction",
     "volt_posterior",
+    "nonvol_rollouts",
     "rollouts_multitask",
     "PipelineConfig",
     "fit_forecast",

@@ -3,7 +3,10 @@
 A JAX parameter pytree is a nested dict (``{"kernel": {"raw_vol": ...},
 "variational_mean": ..., ...}``); the port's modules carry the same leaf
 names at the same paths (``kernel.raw_vol``, ``variational_mean``).  The
-pipeline's ``aux`` and warm starts use the same nested-dict layout.
+pipeline's ``aux`` and warm starts use the same nested-dict layout.  A
+baseline GP's tree (``{"kernel": ..., "mean": ..., "likelihood": ...}``,
+a scaled kernel's base under ``base``) loads the same way.  A flax LSTM
+tree has its own layout: :func:`lstm_params_from_flax` maps it.
 """
 
 from __future__ import annotations
@@ -12,7 +15,8 @@ import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["params_from_jax", "load_jax_params", "params_tree"]
+__all__ = ["params_from_jax", "load_jax_params", "params_tree",
+           "lstm_params_from_flax"]
 
 
 def params_from_jax(tree, device=None):
@@ -46,3 +50,29 @@ def params_tree(module: nn.Module):
     for name, child in module.named_children():
         tree[name] = params_tree(child)
     return tree
+
+
+def lstm_params_from_flax(tree, device=None):
+    """A flax tree of the JAX package's LSTM baseline (``OptimizedLSTMCell_{l}``
+    with per-gate kernels ``i{g}`` (input, no bias) and ``h{g}`` (hidden,
+    with the bias), gates ``i, f, g, o``; ``Dense_0``, ``Dense_1``) -> the
+    ``state_dict`` of :class:`volt_tpu_torch.models.lstm._Net`: each
+    ``torch.nn.LSTM`` weight stacks the four gates' transposed kernels in
+    the same order, ``bias_hh`` carries flax's bias and ``bias_ih`` is
+    zero."""
+    t = params_from_jax(tree, device)
+    out = {}
+    layer = 0
+    while f"OptimizedLSTMCell_{layer}" in t:
+        cell = t[f"OptimizedLSTMCell_{layer}"]
+        for side, name in (("i", "weight_ih"), ("h", "weight_hh")):
+            out[f"lstm.{name}_l{layer}"] = torch.cat(
+                [cell[f"{side}{g}"]["kernel"].T for g in "ifgo"])
+        bias = torch.cat([cell[f"h{g}"]["bias"] for g in "ifgo"])
+        out[f"lstm.bias_hh_l{layer}"] = bias
+        out[f"lstm.bias_ih_l{layer}"] = torch.zeros_like(bias)
+        layer += 1
+    for i in (0, 1):
+        out[f"dense{i}.weight"] = t[f"Dense_{i}"]["kernel"].T
+        out[f"dense{i}.bias"] = t[f"Dense_{i}"]["bias"]
+    return out

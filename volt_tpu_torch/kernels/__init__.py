@@ -1,3 +1,7 @@
-from .kernels import BMKernel, FBMKernel, IndexKernel, VolatilityKernel
+from .kernels import (BMKernel, FBMKernel, IndexKernel, MaternKernel,
+                      OUKernel, RBFKernel, ScaleKernel, SpectralMixtureKernel,
+                      VolatilityKernel)
 
-__all__ = ["BMKernel", "FBMKernel", "VolatilityKernel", "IndexKernel"]
+__all__ = ["BMKernel", "FBMKernel", "OUKernel", "VolatilityKernel",
+           "MaternKernel", "RBFKernel", "ScaleKernel", "SpectralMixtureKernel",
+           "IndexKernel"]

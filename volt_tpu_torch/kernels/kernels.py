@@ -1,14 +1,19 @@
 """Covariance functions (port of :mod:`volt_tpu.kernels.kernels`): the BM
-and FBM kernels, the Volt covariance and the multitask ``IndexKernel``.
+and FBM kernels, the Volt covariance, the multitask ``IndexKernel`` and
+the baselines' stationary kernels (OU, RBF, Matérn, scaled, spectral
+mixture).
 
 Kernels with learnable state are ``nn.Module``s whose parameters carry the
 JAX leaf names with a leading batch (asset) shape; :meth:`init` creates
-them.  Time inputs are 1-D grids ``(n,)``.
+them.  Time inputs are 1-D grids ``(n,)``; ``diag=True`` gives the
+elementwise values ``k(x1[i], x2[i])`` without a matrix.
 """
 
 from __future__ import annotations
 
 from typing import Optional
+
+import math
 
 import torch
 from torch import nn
@@ -18,7 +23,9 @@ from ..ops.fbm import fbm_cholesky, fbm_noise_cholesky
 from ..ops.volint import min_index_covariance, vol_integral
 from ..ops.volt_cov import volt_covariance
 
-__all__ = ["BMKernel", "FBMKernel", "VolatilityKernel", "IndexKernel"]
+__all__ = ["BMKernel", "FBMKernel", "OUKernel", "VolatilityKernel",
+           "RBFKernel", "MaternKernel", "ScaleKernel", "SpectralMixtureKernel",
+           "IndexKernel"]
 
 
 class _ScalarParamKernel(nn.Module):
@@ -90,6 +97,184 @@ class FBMKernel(_ScalarParamKernel):
         ``(*batch, 1)``), through the increment domain."""
         return fbm_noise_cholesky(x, 2.0 * self.vol(), noise, jitter,
                                   max_tries, per_lane)
+
+
+class _LengthscaleKernel(nn.Module):
+    """A stationary kernel of one parameter ``raw_lengthscale`` ``(*batch,
+    1)`` under ``Positive`` (softplus), default 0.6931, as a function of
+    the scaled distance ``(x1 - x2) / lengthscale``."""
+
+    def __init__(self, lengthscale: float = 0.6931):
+        super().__init__()
+        self.constraint = Positive()
+        self._init_lengthscale = lengthscale
+
+    def init(self, batch_shape=(), dtype=torch.float32, device=None,
+             generator=None):
+        raw = self.constraint.inverse(torch.tensor(self._init_lengthscale,
+                                                   dtype=dtype))
+        self.raw_lengthscale = nn.Parameter(torch.full(
+            (*batch_shape, 1), raw.item(), dtype=dtype, device=device))
+        return self
+
+    def lengthscale(self):
+        return self.constraint.forward(self.raw_lengthscale)
+
+    def _from_scaled(self, d):
+        raise NotImplementedError
+
+    def forward(self, x1, x2=None, diag: bool = False):
+        """``(*batch, n1, n2)`` covariance, or its diagonal with ``diag``."""
+        x2 = x1 if x2 is None else x2
+        ell = self.lengthscale()
+        if diag:
+            return self._from_scaled((x1 - x2) / ell)
+        return self._from_scaled((x1[..., :, None] - x2[..., None, :])
+                                 / ell[..., None])
+
+
+class OUKernel(_LengthscaleKernel):
+    """Ornstein–Uhlenbeck kernel ``exp(-|s - t| / l / 2)`` (the reference
+    divides the unsquared distance by the lengthscale, then halves)."""
+
+    def _from_scaled(self, d):
+        return torch.exp(-torch.abs(d) / 2.0)
+
+
+class RBFKernel(_LengthscaleKernel):
+    """``exp(-(s - t)^2 / (2 l^2))``."""
+
+    def _from_scaled(self, d):
+        return torch.exp(-0.5 * d * d)
+
+
+class MaternKernel(_LengthscaleKernel):
+    """Matérn covariance with ``nu`` in {0.5, 1.5, 2.5} (default 2.5,
+    gpytorch's)."""
+
+    def __init__(self, nu: float = 2.5, lengthscale: float = 0.6931):
+        if nu not in (0.5, 1.5, 2.5):
+            raise ValueError("nu must be one of 0.5, 1.5, 2.5")
+        super().__init__(lengthscale)
+        self.nu = nu
+
+    def _from_scaled(self, d):
+        d = torch.abs(d)
+        if self.nu == 0.5:
+            return torch.exp(-d)
+        if self.nu == 1.5:
+            s = math.sqrt(3.0) * d
+            return (1.0 + s) * torch.exp(-s)
+        s = math.sqrt(5.0) * d
+        return (1.0 + s + s * s / 3.0) * torch.exp(-s)
+
+
+class ScaleKernel(nn.Module):
+    """``outputscale * base``: parameter ``raw_outputscale`` ``(*batch,)``
+    under ``Positive`` (default 0.6931), the base kernel's under
+    ``base``."""
+
+    def __init__(self, base_kernel: nn.Module, outputscale: float = 0.6931):
+        super().__init__()
+        self.base = base_kernel
+        self.constraint = Positive()
+        self._init_outputscale = outputscale
+
+    @property
+    def base_kernel(self):
+        return self.base
+
+    def init(self, batch_shape=(), dtype=torch.float32, device=None,
+             generator=None):
+        raw = self.constraint.inverse(torch.tensor(self._init_outputscale,
+                                                   dtype=dtype))
+        self.raw_outputscale = nn.Parameter(torch.full(
+            tuple(batch_shape), raw.item(), dtype=dtype, device=device))
+        self.base.init(batch_shape, dtype, device, generator)
+        return self
+
+    def outputscale(self):
+        return self.constraint.forward(self.raw_outputscale)
+
+    def forward(self, x1, x2=None, diag: bool = False):
+        base = self.base(x1, x2, diag=diag)
+        extra = 1 if diag else 2
+        return self.outputscale()[(...,) + (None,) * extra] * base
+
+
+class SpectralMixtureKernel(nn.Module):
+    """Spectral mixture (Wilson & Adams 2013) on 1-D inputs,
+    ``K(tau) = sum_q w_q exp(-2 pi^2 tau^2 s_q^2) cos(2 pi tau mu_q)``;
+    parameters ``raw_weights``, ``raw_means``, ``raw_scales`` ``(*batch,
+    q)``, each under ``Positive``."""
+
+    def __init__(self, num_mixtures: int = 10):
+        super().__init__()
+        self.num_mixtures = num_mixtures
+        self.constraint = Positive()
+
+    def _set(self, weights, means, scales):
+        inv = self.constraint.inverse
+        self.raw_weights = nn.Parameter(inv(weights))
+        self.raw_means = nn.Parameter(inv(means))
+        self.raw_scales = nn.Parameter(inv(scales))
+        return self
+
+    def init(self, batch_shape=(), dtype=torch.float32, device=None,
+             generator=None):
+        """Means and scales standard exponential, weights uniform on
+        ``[0.5, 1.5) / q``, drawn from ``generator``."""
+        shape = (*batch_shape, self.num_mixtures)
+        kw = dict(dtype=dtype, device=device)
+
+        def draw(fill):
+            return fill(torch.empty(shape, **kw))
+
+        means = draw(lambda t: t.exponential_(generator=generator))
+        scales = draw(lambda t: t.exponential_(generator=generator))
+        weights = draw(lambda t: t.uniform_(0.5, 1.5, generator=generator)) \
+            / self.num_mixtures
+        return self._set(weights, means, scales)
+
+    @torch.no_grad()
+    def initialize_from_data(self, x, y, generator=None):
+        """gpytorch's data-driven init: scales the reciprocal of ``|z|
+        max_dist`` (heavy-tailed; ``|z|`` floored at 1e-6), means uniform
+        below the Nyquist frequency of the smallest spacing, weights
+        ``std(y) / q`` (biased std)."""
+        shape = (*self.raw_weights.shape[:-1], self.num_mixtures)
+        xs = torch.sort(x, dim=-1).values
+        spacing = torch.diff(xs, dim=-1)
+        min_dist = torch.min(torch.where(spacing > 0, spacing,
+                                         torch.full_like(spacing, math.inf)),
+                             dim=-1).values
+        max_dist = xs[..., -1] - xs[..., 0]
+        kw = dict(dtype=x.dtype, device=x.device, generator=generator)
+        z = torch.abs(torch.randn(shape, **kw))
+        scales = 1.0 / (torch.clamp(z, min=1e-6) * max_dist[..., None])
+        means = (torch.rand(shape, **kw) * 0.5
+                 / torch.clamp(min_dist[..., None], min=1e-12))
+        weights = (torch.std(y, dim=-1, correction=0)[..., None]
+                   / self.num_mixtures).expand(shape)
+        return self._set(weights.clone(), means, scales)
+
+    def forward(self, x1, x2=None, diag: bool = False):
+        """``(*batch, n1, n2)`` covariance (through the ``(*batch, n1, n2,
+        q)`` components), or its diagonal with ``diag``."""
+        x2 = x1 if x2 is None else x2
+        w = self.constraint.forward(self.raw_weights)
+        mu = self.constraint.forward(self.raw_means)
+        s = self.constraint.forward(self.raw_scales)
+        if diag:
+            tau = (x1 - x2)[..., None]  # (..., n, q)
+            sq, mq, wq = s[..., None, :], mu[..., None, :], w[..., None, :]
+        else:
+            tau = (x1[..., :, None] - x2[..., None, :])[..., None]
+            sq, mq = s[..., None, None, :], mu[..., None, None, :]
+            wq = w[..., None, None, :]
+        comp = torch.exp(-2.0 * math.pi ** 2 * tau ** 2 * sq ** 2) \
+            * torch.cos(2.0 * math.pi * tau * mq)
+        return torch.sum(wq * comp, dim=-1)
 
 
 class VolatilityKernel:

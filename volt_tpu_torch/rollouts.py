@@ -1,5 +1,4 @@
-"""Monte-Carlo forecasting (port of :mod:`volt_tpu.rollouts`, less the
-baselines' ``nonvol_rollouts``).
+"""Monte-Carlo forecasting (port of :mod:`volt_tpu.rollouts`).
 
 The volatility kernel's min-index structure makes the autoregressive
 conditional Markov: given the sampled history, the next log price is
@@ -10,6 +9,10 @@ per step.  The one-shot predictions sample the same Markov conditional
 over the whole horizon.  The ``*_dense`` twins restate the reference's
 dense algebra (the joint covariance through kernel K2 on CUDA, a Cholesky
 and a solve per step); they are the oracle the Markov forms are held to.
+The baselines' stationary kernels have no Markov structure: their
+rollout (:func:`nonvol_rollouts`) grows the Cholesky factor of the joint
+kernel matrix by one row a step, held to the dense re-factorising loop
+:func:`nonvol_rollouts_dense`.
 
 ``generator`` takes the place of the JAX ``key``; each function also takes
 the standard normals it would draw (``noise`` / ``zs``), so a run can be
@@ -23,6 +26,7 @@ import torch
 from .kernels import BMKernel
 from .means import MeanRevertingEMAMean
 from .models.volt import VoltState
+from .ops.chol import psd_safe_cholesky, solve_lower_triangular
 from .ops.mvn import conditional, sample_mvn
 
 __all__ = [
@@ -32,9 +36,11 @@ __all__ = [
     "sample_prediction",
     "mean_prediction",
     "volt_posterior",
+    "nonvol_rollouts",
+    "rollouts_multitask",
     "generate_prediction_dense",
     "rollouts_dense",
-    "rollouts_multitask",
+    "nonvol_rollouts_dense",
     "_rollout_volt_scan",
 ]
 
@@ -158,8 +164,8 @@ def rollouts(generator, model: VoltState, train_x, train_y, test_x,
     ``generator``."""
     del train_x  # the model state carries its grid; kept for API parity
     if method != "volt":
-        raise NotImplementedError("non-volt rollouts are not ported yet "
-                                  "(ROADMAP slice C, item 19)")
+        raise NotImplementedError(
+            "non-volt rollouts live in volt_tpu_torch.rollouts.nonvol_rollouts")
     with torch.no_grad():
         y = model.train_y
         use_theta = theta is not None
@@ -174,6 +180,79 @@ def rollouts(generator, model: VoltState, train_x, train_y, test_x,
               else noise["zs"])
         return _rollout_volt_scan(model, latent, test_x, pred_vol, zs,
                                   use_theta, theta if use_theta else 0.0)
+
+
+# ---------------------------------------------------------------------------
+# Non-volatility autoregressive rollouts (baseline exact GPs)
+# ---------------------------------------------------------------------------
+
+
+def _nonvol_parts(model):
+    """``(kernel, mean, noise)`` of a fitted baseline."""
+    module = model.module
+    return module.kernel, module.mean, module.likelihood.noise()[..., 0]
+
+
+def nonvol_rollouts(generator, model, train_x, train_y, test_x,
+                    nsample: int = 50, zs=None):
+    """Autoregressive MC forecast of a fitted baseline
+    (:class:`~volt_tpu_torch.models.basic.BasicGPState`, log prices;
+    reference ``nonvol_rollouts``): log samples ``(nsample, H)``.
+    ``train_x`` and ``train_y`` (the raw prices) are kept for the
+    reference's call signature and not read.  ``zs`` ``(nsample, H)``
+    optionally gives the per-step standard normals.
+
+    The kernel matrix of the joint grid is built once (the
+    hyperparameters are fixed), and the Cholesky factor of ``K + noise I``
+    grows by one row a step: one triangular solve shared by the paths,
+    O((n + t)^2), then O(S (n + t)) per path, where the reference
+    re-factorises O((n + t)^3) a step.  The conditional variance
+    ``k_tt - w.w`` is a cancellation: it needs true float32 products
+    (TF32 off on the card)."""
+    del train_x, train_y
+    with torch.no_grad():
+        kern, mean_mod, noise = _nonvol_parts(model)
+        tx, ty = model.train_x, model.train_y
+        n, h = tx.shape[-1], test_x.shape[-1]
+        k_joint = kern(torch.cat([tx, test_x], -1))  # (n+H, n+H)
+        a_diag = torch.diagonal(k_joint) + noise
+        state = None
+        if mean_mod.is_history_dependent:
+            # the Magpie mean's window scan state, one per path
+            state = {key: v.expand(nsample, *v.shape)
+                     for key, v in mean_mod.scan_init(ty).items()}
+            m_train = mean_mod.train_values(ty)
+        else:
+            m_train, m_det = mean_mod(tx), mean_mod(test_x)
+        eye = torch.eye(n, dtype=ty.dtype, device=ty.device)
+        chol = torch.zeros(n + h, n + h, dtype=ty.dtype, device=ty.device)
+        chol[:n, :n] = psd_safe_cholesky(k_joint[:n, :n] + noise * eye)
+        # u = L^{-1} (y - m), extended per path as the paths grow
+        u = torch.zeros(nsample, n + h, dtype=ty.dtype, device=ty.device)
+        u[:, :n] = solve_lower_triangular(chol[:n, :n],
+                                          (ty - m_train)[:, None])[:, 0]
+        if zs is None:
+            zs = torch.randn(nsample, h, dtype=ty.dtype, device=ty.device,
+                             generator=generator)
+        out = []
+        for t in range(h):
+            nt = n + t
+            k_col = k_joint[:nt, nt]
+            w = solve_lower_triangular(chol[:nt, :nt], k_col[:, None])[:, 0]
+            ww = torch.dot(w, w)
+            resid = u[:, :nt] @ w  # (S,) conditional mean of the residual
+            m_t = m_det[t] if state is None else mean_mod.scan_value(state)
+            sd = torch.sqrt(torch.clamp(k_joint[nt, nt] - ww, min=1e-12))
+            y_t = m_t + resid + sd * zs[:, t]
+            # the factor's new row [w, sqrt(A_tt - w.w)], and u's new entry
+            diag = torch.sqrt(torch.clamp(a_diag[nt] - ww, min=1e-12))
+            chol[nt, :nt] = w
+            chol[nt, nt] = diag
+            u[:, nt] = (y_t - m_t - resid) / diag
+            if state is not None:
+                state = mean_mod.scan_append(state, y_t)
+            out.append(y_t)
+        return torch.stack(out, dim=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -422,4 +501,40 @@ def rollouts_dense(generator, model: VoltState, train_x, train_y, test_x,
             out.append(y_t)
             xs, vols = full_x, full_vol
             ys = torch.cat([ys, y_t[..., None]], -1)
+        return torch.stack(out, dim=-1)
+
+
+def nonvol_rollouts_dense(generator, model, test_x, nsample: int = 50,
+                          zs=None):
+    """Dense per-step restatement of the reference's baseline loop (the
+    oracle of :func:`nonvol_rollouts`): at every step the kernel matrix
+    of the grown grid, its factor, the conditional and one draw per path.
+    ``zs`` ``(nsample, H)`` pins the per-step standard normals.  Returns
+    ``(nsample, H)``."""
+    with torch.no_grad():
+        kern, mean_mod, noise = _nonvol_parts(model)
+        xs = model.train_x
+        ys = model.train_y.expand(nsample, model.train_y.shape[-1])
+        out = []
+        for t in range(test_x.shape[-1]):
+            x_t = test_x[t:t + 1]
+            eye = torch.eye(xs.shape[-1], dtype=ys.dtype, device=ys.device)
+            k_tr = kern(xs) + noise * eye
+            if mean_mod.is_history_dependent:
+                train_mean = mean_mod.train_values(ys)
+                m_test = mean_mod.last_value(ys)[..., None]
+            else:
+                train_mean = mean_mod(xs)
+                m_test = mean_mod(x_t)
+            cond_mean, cond_cov = conditional(k_tr, kern(xs, x_t), kern(x_t),
+                                              ys - train_mean)
+            if zs is None:
+                y_t = sample_mvn(cond_mean + m_test, cond_cov,
+                                 generator=generator)[..., 0]
+            else:
+                sd = torch.sqrt(torch.clamp(cond_cov[..., 0, 0], min=0.0))
+                y_t = (cond_mean + m_test)[..., 0] + sd * zs[:, t]
+            out.append(y_t)
+            xs = torch.cat([xs, x_t], -1)
+            ys = torch.cat([ys, y_t[:, None]], -1)
         return torch.stack(out, dim=-1)

@@ -13,14 +13,16 @@ package's defaults and the reference-style aliases.
 * ``learn_gpcv_multitask`` / ``train_volt_multitask`` — the Kronecker
                          multitask chain: one variational vol model over
                          ``T`` assets, per-task Volt fits and one
-                         multitask vol GP.
+                         multitask vol GP;
+* ``train_basic_model``— Adam(0.1) on the exact MLL of a Matérn or
+                         spectral-mixture baseline over log prices.
 
 Each fit minimises the per-asset losses of a module that holds its own
 parameters, so leading batch (asset) dims train as independent fits.
 The data-model loss is the O(n) Kalman MLL (kernel S1 on CUDA), the same
 function as the dense :meth:`VoltGP.mll`.  ``generator`` replaces the JAX
-``key``: it draws the only random initial values (``LinearMean``'s), and
-``init_params`` can set them instead (e.g. the JAX package's, through
+``key``: it draws the random initial values (``LinearMean``'s, the
+spectral mixture's), and ``init_params`` can set them instead (e.g. the JAX package's, through
 :mod:`volt_tpu_torch.convert`).
 """
 
@@ -32,9 +34,10 @@ from torch import nn
 
 from .convert import load_jax_params
 from .gp.natural import ngvi_tridiag_fit
-from .kernels import BMKernel
+from .kernels import BMKernel, SpectralMixtureKernel
 from .likelihoods import VolatilityGaussianLikelihood
 from .means import LogLinearMean
+from .models.basic import SMGP, BasicGP, BasicGPState, MaternGP
 from .models.bmgp import BMGP, BMGPState
 from .models.gpcv import GPCVModel, GPCVState
 from .models.multitask import MultitaskBMGP, MultitaskVariationalGP
@@ -57,6 +60,7 @@ __all__ = [
     "TrainVolModel",
     "TrainDataModel",
     "TrainVoltMagpieModel",
+    "TrainBasicModel",
 ]
 
 
@@ -75,7 +79,8 @@ def scaled_returns(train_x, train_y):
 def adam_loop(module, loss_fn, iters: int, lr: float):
     """Minimise the per-asset losses ``loss_fn()`` ``(*batch)`` with Adam
     over every parameter of ``module``; returns the losses ``(iters,
-    *batch)``, each taken before its step's update.
+    *batch)``, each taken before its step's update (with no steps, an
+    empty ``(0, *batch)`` on the losses' device, as JAX's scan returns).
 
     One Adam on the summed losses equals one Adam per asset: the
     gradient of the sum w.r.t. an asset's parameters is that asset's own
@@ -92,16 +97,16 @@ def adam_loop(module, loss_fn, iters: int, lr: float):
         loss.sum().backward()
         opt.step()
         losses.append(loss.detach())
+    if not losses:
+        with torch.no_grad():
+            loss = loss_fn()
+        return loss.new_empty((0, *loss.shape))
     return torch.stack(losses)
 
 
 def _print_losses(losses, iters):
     for i in range(0, iters, 50):
         print(f"Iter {i + 1}/{iters} - Loss: {float(losses[i].mean()):.3f}")
-
-
-def _not_ported(name, item):
-    raise NotImplementedError(f"{name} is not ported yet (ROADMAP {item})")
 
 
 # ---------------------------------------------------------------------------
@@ -372,8 +377,46 @@ def train_volt_magpie(train_x, train_y, vol_state: BMGPState, vol_path,
                            mean_func == "loglinear", generator, init_params)
 
 
-def train_basic_model(*args, **kwargs):
-    _not_ported("train_basic_model", "slice C, item 17")
+# ---------------------------------------------------------------------------
+# Baselines
+# ---------------------------------------------------------------------------
+
+
+def _fit_basic(module: BasicGP, train_x, log_y, iters: int, lr: float):
+    """Adam on the baseline's exact MLL; the losses ``(iters,)``."""
+    return adam_loop(module, lambda: -module.mll(train_x, log_y), iters, lr)
+
+
+def train_basic_model(train_x, train_y, train_iters: int = 1000,
+                      printing: bool = False, model_type: str = "matern",
+                      num_mixtures: int = 10, mean_func: str = "loglinear",
+                      lr: float = 0.1, generator=None,
+                      init_params=None) -> BasicGPState:
+    """Matérn (``model_type="matern"``) or spectral-mixture baseline on the
+    log of the prices ``train_y``, with a log-linear mean whose bias starts
+    at the mean price (``mean_func="loglinear"``) or a constant one.
+    ``generator`` draws the random init (the spectral mixture's, then its
+    data-driven re-init; the linear mean's weights); ``init_params``
+    (``{"kernel", "mean", "likelihood"}``, e.g. the JAX package's
+    initialised tree) replaces the whole init."""
+    log_y = torch.log(train_y)
+    mean = LogLinearMean(1) if mean_func == "loglinear" else None
+    module = (MaternGP(mean) if model_type == "matern"
+              else SMGP(num_mixtures, mean))
+    module.init(log_y.dtype, log_y.device, generator)
+    if init_params is not None:
+        load_jax_params(module, init_params, log_y.device)
+    else:
+        if isinstance(module.kernel, SpectralMixtureKernel):
+            module.kernel.initialize_from_data(train_x, log_y, generator)
+        if mean_func == "loglinear":
+            module.mean.initialize_from_data(train_x, log_y)
+        module.likelihood.init((), log_y.dtype, log_y.device,
+                               raw_noise_init=1e-5)
+    losses = _fit_basic(module, train_x, log_y, train_iters, lr)
+    if printing:
+        _print_losses(losses, train_iters)
+    return module.fit_state(train_x, log_y)
 
 
 def _fit_multitask_vol(mt: MultitaskBMGP, train_x, log_vols_nt, iters: int,
@@ -431,3 +474,4 @@ LearnGPCV = learn_gpcv
 TrainVolModel = train_vol_model
 TrainDataModel = train_data_model
 TrainVoltMagpieModel = train_volt_magpie
+TrainBasicModel = train_basic_model
