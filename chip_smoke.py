@@ -129,7 +129,15 @@ Phases, each printed with its time; any failure exits non-zero:
    version, and the card's ``nonvol_rollouts`` against
    ``nonvol_rollouts_dense`` on the same normals (S=64, H=10, atol 5e-4
    per path);
-15. agreement on a small input: the card's run equals the CPU run (the
+15. ``mesh``: the scale-out layer (``run_mesh``): the main path in a world
+   of one process over NCCL against the unsharded call; a world of two
+   processes on the card (gloo) with the main path on a (2, 1) mesh and
+   ``price_options_batch`` at 500 x 10k x 100 on a (1, 2) mesh, each
+   against the unsharded call; a checkpoint round trip; a profiler trace
+   that names K1's and S1's kernels; ``graft_entry.entry()``; the
+   ``live_serving`` and ``option_pricing`` examples at their defaults;
+   every K1 and S1 launch at a shape that phase 3 checks;
+16. agreement on a small input: the card's run equals the CPU run (the
    plain versions, which the repository's tests hold against the JAX
    package): the main path within the pipeline parity tolerances; the
    dense family's Laplace init on ``S = R R^T`` (1e-3 of its largest
@@ -147,12 +155,14 @@ Phases, each printed with its time; any failure exits non-zero:
 Every phase prints its times with the card's name and power limit.  The
 vol band: recovered vol / true SABR vol, the median over series, inside
 (0.3, 3.5).  Launch counts are reset before each of phases 4-13 (and each
-item of phase 14) and read
+item of phases 14 and 15) and read
 after it; a kernel's ``launches`` is the count from the phase that drives
 its path, and ``launches_by_path`` its counts in the quantiles call of
 phase 4, in ``Volt().Train()`` alone (S1 must launch in both), in
 ``price_options_batch``, in ``fbm_path``, in the cold ``multitask`` fit,
-in ``long_main_path`` and summed over the items of ``baselines``.  The
+in ``long_main_path``, summed over the items of ``baselines``, and in
+``mesh``'s sharded calls (the world of one, both ranks of the world of
+two).  The
 second-to-last line is a JSON object with each kernel's launches, error, times, bound
 (``bound_ms``: the largest of its bytes over 3.35 TB/s, its operations
 over the H100's peak for their type and its special functions over the
@@ -170,7 +180,7 @@ Two trees of the port against each other on one card::
 runs the named phases (``PHASES``: ``kernel_times``, ``kalman_times``,
 ``main_path``, ``gpcv_full``, ``gpcv_cv``, ``gpcv_sparse``,
 ``option_pricing``, ``fbm_path``, ``multitask``, ``long_main_path``,
-``baselines``; a phase named twice runs twice, the first cold) in
+``baselines``, ``mesh``; a phase named twice runs twice, the first cold) in
 four fresh processes, in the trees parent, this one, this one, parent,
 each with its own package and kernels and this file's phases and
 timers.  It prints one JSON line per process and writes the
@@ -308,15 +318,20 @@ EWMA_TIMED = [((64, 999), 300), ((64, 999), 100), ((64, 999), 25),
               ((500, 999), 300), ((505, 999), 25)]
 
 
-# K1's checked shapes and k: the main path's, the edges, and the baselines
+# K1's checked shapes and k: the main path's, the edges, the baselines
 # path's (the basic GP's MLL and the wind Volt window at k=400 >= T, the
-# wind baseline at k=200, the multitask wind stations, the CLI's k=100);
-# ``run_baselines`` fails on a launch of that path at a shape not here
+# wind baseline at k=200, the multitask wind stations, the CLI's k=100)
+# and the mesh path's (a rank's 32 assets, the profiled B=8 call, the
+# checkpointed single series, entry()'s step, the live_serving and
+# option_pricing examples); ``run_baselines`` and ``run_mesh`` fail on a
+# launch of their paths at a shape not here
 EWMA_CHECKED = [((64, 999), 20), ((64, 999), 100), ((64, 999), 300),
                 ((500, 999), 300), ((500, 999), 25), ((1, 5), 300),
                 ((2, 3, 37), 20), ((70000, 3), 2), ((16, 2100), 300),
                 ((1, 399), 400), ((1, 400), 200), ((4, 399), 400),
-                ((2, 399), 100)]
+                ((2, 399), 100), ((32, 999), 300), ((8, 999), 300),
+                ((1, 999), 300), ((1, 128), 25), ((8, 199), 49),
+                ((1, 251), 50)]
 
 
 def check_ewma(torch):
@@ -394,11 +409,12 @@ def time_ewma(torch):
 
 # S1's check shapes: the main path, the reference API, the edges, ROADMAP
 # item 9's B=500, n=16000 (16 tiles of the kernel's carry; the
-# long_main_path phase), the multitask path's T=505 and the baselines
+# long_main_path phase), the multitask path's T=505, the baselines
 # path's (the wind Volt window, the CLI's two windows, the multitask wind
-# stations)
+# stations) and the mesh path's (as K1's)
 KALMAN_SHAPES = [(64, 999), (1, 999), (3, 1), (5, 33), (500, 999),
-                 (505, 999), (16, 16000), (1, 399), (2, 399), (4, 399)]
+                 (505, 999), (16, 16000), (1, 399), (2, 399), (4, 399),
+                 (32, 999), (8, 999), (1, 128), (8, 199), (1, 251)]
 KALMAN_TIMED = [(64, 999), (1, 999), (500, 999), (505, 999), (16, 16000)]
 
 
@@ -562,9 +578,21 @@ def check_volt_cov(torch):
     ms = cuda_ms(torch, lambda: volt_covariance_cuda(integral))
     dev_ms = device_ms(torch, volt_covariance_cuda, integral)
     plain_ms = cuda_ms(torch, lambda: min_index_covariance(integral))
+
+    # the integral is non-decreasing, so one broadcast minimum is the same
+    # matrix: PyTorch's own call for K2's function
+    def library(i):
+        return torch.minimum(i[..., :, None], i[..., None, :])
+
+    if not torch.equal(library(integral), volt_covariance_cuda(integral)):
+        fail("K2 differs from torch.minimum's broadcast")
+    lib_ms = cuda_ms(torch, lambda: library(integral))
+    lib_dev_ms = device_ms(torch, library, integral)
     gbs = 64 * 999 * 999 * 4 / (dev_ms * 1e-3) / 1e9
     print(f"   K2 (64, 999): kernel {ms:.4f} ms a call, {dev_ms:.4f} ms on "
-          f"the device ({gbs:.0f} GB/s of stores); plain {plain_ms:.4f} ms")
+          f"the device ({gbs:.0f} GB/s of stores); plain {plain_ms:.4f} ms; "
+          f"torch.minimum's broadcast {lib_ms:.4f} ms a call, "
+          f"{lib_dev_ms:.4f} ms on the device")
     # pure copies: the integral read, the (64, 999, 999) output written
     bound = bound_ms(4 * (64 * 999 + 64 * 999 * 999), 0, FP32_OPS_PER_S)
     return {"name": "volt_covariance", "route": "cuda",
@@ -572,7 +600,7 @@ def check_volt_cov(torch):
             "replaces": "volt_tpu/ops/pallas/volt_cov.py:47",
             "symbol": "volt_covariance", "max_abs_err": worst, "ms": ms,
             "device_ms": dev_ms, "plain_ms": plain_ms, **bound,
-            "library_ms": None, "library_device_ms": None}
+            "library_ms": lib_ms, "library_device_ms": lib_dev_ms}
 
 
 def gh_inputs(torch, g, shape):
@@ -1671,6 +1699,367 @@ def run_option_pricing(torch, vt, native, dev="cuda", b=500, n=999, h=100,
                       "atm_value_mean": values[:, k // 2].mean(0).tolist()}
 
 
+def _mesh_inputs(torch, vt, dev, b, n, h, s, seed):
+    """``b`` SABR series of ``n`` returns with their ``h``-step continuation,
+    the grids, and the pipeline's normals for ``s`` paths, drawn alike in
+    every process from ``seed`` on ``dev``."""
+    f, _ = vt.data.sabr_paths(steps=n + 1 + h, seed=seed, n_paths=b)
+    x, test_x = grids(torch, n, h, dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    noise = {"vol_r0": torch.randn(b, s, device=dev, generator=g),
+             "vol_z": torch.randn(b, s, h, device=dev, generator=g),
+             "zs": torch.randn(b, s, h, device=dev, generator=g)}
+    ys = torch.tensor(f, device=dev)
+    return x, test_x, ys[:, :n + 1], ys[:, n + 1:], noise
+
+
+def _mesh_pricing(torch, future, ys, h):
+    """The option_pricing phase's grid: 21 strikes from 0.8x to 1.2x the
+    median last price, the expiries, the realised prices there."""
+    expiry = [e for e in EXPIRY_STEPS if e < h] or [h - 1]
+    strikes = torch.linspace(0.8, 1.2, 21, device=ys.device) \
+        * ys[:, -1].median()
+    return strikes, expiry, future[:, expiry]
+
+
+def _mesh_rank(rank, dev, sizes):
+    """One rank of the mesh phase's world of 2 on one device (gloo, the
+    collectives staged through host memory): the unsharded call on the
+    rank's block of assets, the main path on a (2, 1) mesh, then
+    ``price_options_batch`` on a (1, 2) mesh.  Returns the block's
+    reference, the gathered fan, the values, the seconds, the peak memory,
+    the K1 and S1 launches of the sharded calls, and the shapes of every
+    launch."""
+    import torch
+
+    import volt_tpu_torch as vt
+    from volt_tpu_torch import native
+    from volt_tpu_torch.parallel import (PipelineConfig, fit_forecast_batch,
+                                         make_mesh, price_options_batch)
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    devices = [dev] * 2
+    seen, out = set(), {}
+    native.launches.clear()
+    with _launch_shapes(native, seen):
+        x, test_x, ys, _, noise = _mesh_inputs(torch, vt, dev,
+                                               *sizes["main"])
+        mesh = make_mesh((2, 1), devices=devices, backend="gloo")
+        cfg = PipelineConfig(output="quantiles", **sizes["cfg"])
+        # the reference first, which also pays the process's first-use
+        # costs: the unsharded call on this rank's block of assets
+        half = len(ys) // 2
+        block = slice(half * mesh.coords[0], half * (mesh.coords[0] + 1))
+        t0 = time.perf_counter()
+        out["block_want"], _ = fit_forecast_batch(
+            None, x, ys[block], test_x, cfg,
+            noise={k: v[block] for k, v in noise.items()})
+        _sync(torch, dev)
+        out["block_want_s"] = time.perf_counter() - t0
+        native.launches.clear()  # the sharded path's launches count
+        _reset_peak(torch, dev)
+        t0 = time.perf_counter()
+        fan, _ = fit_forecast_batch(None, x, ys, test_x, cfg, noise=noise,
+                                    mesh=mesh)
+        out["fan"] = mesh.gather(fan, ("asset",))
+        _sync(torch, dev)
+        out["main_s"] = time.perf_counter() - t0
+        out["main_peak_gib"] = _peak_gib(torch, dev)
+        del noise
+
+        x, test_x, ys, future, noise = _mesh_inputs(torch, vt, dev,
+                                                    *sizes["pricing"])
+        strikes, expiry, realized = _mesh_pricing(torch, future, ys,
+                                                  test_x.shape[-1])
+        mesh = make_mesh((1, 2), devices=devices, backend="gloo")
+        pcfg = PipelineConfig(output="samples",
+                              **{**sizes["cfg"],
+                                 "nsample": sizes["pricing"][3]})
+        _reset_peak(torch, dev)
+        t0 = time.perf_counter()
+        res = price_options_batch(None, x, ys, test_x, strikes, expiry, pcfg,
+                                  realized=realized, noise=noise, mesh=mesh)
+        _sync(torch, dev)
+        out["pricing_s"] = time.perf_counter() - t0
+        out["pricing_peak_gib"] = _peak_gib(torch, dev)
+        out["values"] = res["values"]
+    out["launches"] = dict(native.launches)
+    out["seen"] = seen
+    return out
+
+
+def run_mesh(torch, vt, native, dev="cuda", b=64, n=999, h=100,
+             nsample=1000, iters=300, price_b=500, price_s=10000,
+             profile_b=8, profile_iters=10, examples=((), ()),
+             timeout=600.0):
+    """The scale-out layer on one card:
+
+    1. a world of one process over NCCL (``multihost_initialize`` at a
+       localhost address, ``make_mesh()``): ``fit_forecast_batch(mesh=)`` at
+       B=64, n=999, the defaults, quantiles, on given normals, against the
+       unsharded call on the same normals (1e-6 of max|fan|);
+    2. a world of 2 processes on the card (gloo: NCCL refuses two ranks on
+       one card), spawned after the kernels were built here: each rank
+       runs the unsharded call on its 32 assets (the reference, and the
+       process's first-use costs), then the main path on a (2, 1) mesh;
+       the gathered fan against the two references joined (1e-5 of
+       max|fan|), and against step 1's B=64 fan at the pipeline's
+       tolerance (rtol 2e-3, atol 1e-3: at B=32 the card's reductions sum
+       in another order than at B=64, and the Adam steps carry the
+       difference; printed); ``price_options_batch`` on a (1, 2) mesh at
+       500 x 10k x 100, 21 strikes, 4 expiries (5k paths a rank), its
+       values against the unsharded call's on the same normals (1e-5 of
+       the largest value);
+    3. a checkpoint round trip: a Volt state fitted on the card (one SABR
+       series, n=999, its true vol path, 100 steps a model), saved,
+       restored, and the same forecast from both on the same draws;
+    4. ``profiling.trace`` over one warm ``fit_forecast_batch`` at B=8,
+       n=999 (10 steps a stage): the Chrome trace must name K1's and S1's
+       kernels;
+    5. ``graft_entry.entry()``'s step on the card, K1 and S1 launched;
+    6. the ``live_serving`` and ``option_pricing`` examples at their
+       defaults on the card; the warm refit's seconds per tick printed.
+
+    Every K1 and S1 launch of the phase, in this process and in the
+    ranks, must be at a shape that the kernels phase holds against the
+    plain version."""
+    import datetime
+    import socket
+    import tempfile
+
+    import torch.distributed as dist
+
+    from volt_tpu_torch import graft_entry
+    from volt_tpu_torch.examples import live_serving, option_pricing
+    from volt_tpu_torch.models import BMGP, VoltGP, make_mean
+    from volt_tpu_torch.parallel import (PipelineConfig, fit_forecast_batch,
+                                         make_mesh, multihost_initialize,
+                                         price_options_batch, spawn_world)
+    from volt_tpu_torch.rollouts import rollouts
+    from volt_tpu_torch.train import train_vol_model, train_volt_magpie
+    from volt_tpu_torch.utils import (restore_volt_state, save_volt_state,
+                                      trace)
+
+    cfg_kw = dict(gpcv_iters=iters, vol_iters=iters, data_iters=iters,
+                  nsample=nsample)
+    cfg = PipelineConfig(output="quantiles", **cfg_kw)
+    sizes = {"main": (b, n, h, nsample, 21),
+             "pricing": (price_b, n, h, price_s, 22), "cfg": cfg_kw}
+    result, seen = {}, set()
+    mesh_launches = {}
+
+    def item(name, seconds, launches):
+        peak = _peak_gib(torch, dev)
+        result[name] = {"s": seconds, "peak_gib": peak, "launches": launches}
+        print(f"   {name}: {seconds:.3f} s, peak {peak:.2f} GiB allocated, "
+              f"launches {launches} ({CARD})")
+
+    with _launch_shapes(native, seen):
+        # ---- 1: a world of one over NCCL --------------------------------
+        x, test_x, ys, _, noise = _mesh_inputs(torch, vt, dev, *sizes["main"])
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        if not multihost_initialize(
+                f"127.0.0.1:{port}", 1, 0,
+                backend="nccl" if dev == "cuda" else "gloo",
+                timeout=datetime.timedelta(seconds=timeout)):
+            fail("mesh: a process group was already initialised")
+        try:
+            mesh = make_mesh(devices=[dev])
+            _reset_peak(torch, dev)
+            (fan1, _), secs, launches = _timed(
+                torch, dev, native, lambda: fit_forecast_batch(
+                    None, x, ys, test_x, cfg, noise=noise, mesh=mesh))
+        finally:
+            dist.destroy_process_group()
+        print(f"   world of 1: backend {mesh.backend}, mesh {mesh.shape}")
+        item("world_of_1", secs, launches)
+        mesh_launches = dict(launches)
+        t0 = time.perf_counter()
+        want, _ = fit_forecast_batch(None, x, ys, test_x, cfg, noise=noise)
+        _sync(torch, dev)
+        one_s = time.perf_counter() - t0
+        scale = want.abs().max().item()
+        err1 = (fan1 - want).abs().max().item()
+        print(f"   world of 1 against the unsharded call ({one_s:.3f} s): "
+              f"max abs diff {err1:.3e} (tol 1e-6 x max|fan| = "
+              f"{1e-6 * scale:.3e})")
+        if not err1 <= 1e-6 * scale:
+            fail("mesh: the world of 1 differs from the unsharded call")
+        del noise
+
+        # ---- 2: a world of 2 processes on the card -----------------------
+        px, ptx, pys, pfuture, pnoise = _mesh_inputs(torch, vt, dev,
+                                                     *sizes["pricing"])
+        strikes, expiry, realized = _mesh_pricing(torch, pfuture, pys, h)
+        pcfg = PipelineConfig(output="samples", **{**cfg_kw,
+                                                   "nsample": price_s})
+        _reset_peak(torch, dev)
+        t0 = time.perf_counter()
+        want_v = price_options_batch(None, px, pys, ptx, strikes, expiry,
+                                     pcfg, realized=realized,
+                                     noise=pnoise)["values"]
+        _sync(torch, dev)
+        print(f"   unsharded price_options_batch B={price_b}, {price_s} "
+              f"paths: {time.perf_counter() - t0:.3f} s, peak "
+              f"{_peak_gib(torch, dev):.2f} GiB allocated")
+        del pnoise
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = spawn_world(_mesh_rank, 2, (dev, sizes), timeout=timeout)
+        world_s = time.perf_counter() - t0
+        for r, res in enumerate(ranks):
+            print(f"   rank {r} of 2: the unsharded call on its block "
+                  f"{res['block_want_s']:.3f} s (the process's first), the "
+                  f"main path {res['main_s']:.3f} s (peak "
+                  f"{res['main_peak_gib']:.2f} GiB), pricing "
+                  f"{res['pricing_s']:.3f} s (peak "
+                  f"{res['pricing_peak_gib']:.2f} GiB); launches "
+                  f"{res['launches']}")
+            seen |= res["seen"]
+            for sym, count in res["launches"].items():
+                mesh_launches[sym] = mesh_launches.get(sym, 0) + count
+        fan2 = ranks[0]["fan"].to(dev)
+        want2 = torch.cat([r["block_want"] for r in ranks]).to(dev)
+        err_blocks = (fan2 - want2).abs().max().item()
+        err2 = (fan2 - fan1).abs().max().item()
+        values = ranks[0]["values"].to(dev)
+        vscale = want_v.abs().max().item()
+        err_v = (values - want_v).abs().max().item()
+        print(f"   world of 2, (2, 1) mesh: the gathered fan against the "
+              f"unsharded calls on each rank's {b // 2} assets, joined: max "
+              f"abs diff {err_blocks:.3e} (tol 1e-5 x max|fan| = "
+              f"{1e-5 * scale:.3e}); against the world of 1's B={b}: max "
+              f"abs diff {err2:.3e} ({err2 / scale:.2e} of max|fan|; tol "
+              f"rtol 2e-3, atol 1e-3, the pipeline's: the card's reductions "
+              f"take another order at another batch size, and 900 Adam "
+              f"steps carry it)")
+        print(f"   (1, 2) mesh: values against the unsharded call: max abs "
+              f"diff {err_v:.3e} (tol 1e-5 x the largest value = "
+              f"{1e-5 * vscale:.3e}); the world took {world_s:.3f} s, "
+              f"spawning included ({CARD})")
+        if not all(torch.equal(r["fan"], ranks[0]["fan"])
+                   and torch.equal(r["values"], ranks[0]["values"])
+                   for r in ranks):
+            fail("mesh: the ranks gathered different results")
+        if not err_blocks <= 1e-5 * scale:
+            fail("mesh: the world of 2's fan differs from the unsharded "
+                 "calls on the ranks' assets")
+        if not torch.allclose(fan2, fan1, rtol=2e-3, atol=1e-3):
+            fail("mesh: the world of 2's fan differs from the world of 1's")
+        if not err_v <= 1e-5 * vscale:
+            fail("mesh: the world of 2's option values differ from the "
+                 "unsharded call's")
+        result["world_of_2"] = {
+            "s": world_s, "main_s": [r["main_s"] for r in ranks],
+            "pricing_s": [r["pricing_s"] for r in ranks],
+            "peak_gib": [max(r["main_peak_gib"], r["pricing_peak_gib"])
+                         for r in ranks],
+            "block_want_s": [r["block_want_s"] for r in ranks],
+            "unsharded_b64_s": one_s}
+        result.update(fan_err_world_of_1=err1, fan_err_blocks=err_blocks,
+                      fan_err_world_of_2=err2, values_err=err_v)
+
+        # ---- 3: a checkpoint round trip on the card ----------------------
+        f, v_true = vt.data.sabr_paths(steps=n + 1, seed=23)
+        x1, test_x1 = grids(torch, n, h, dev)
+        y1 = torch.tensor(f, device=dev)
+        vol1 = torch.tensor(v_true[1:], device=dev)
+        _reset_peak(torch, dev)
+
+        def checkpoint():
+            vol_state = train_vol_model(x1, vol1, train_iters=100)
+            model = train_volt_magpie(x1, y1[1:], vol_state, vol1,
+                                      train_iters=100, k=300)
+            with tempfile.TemporaryDirectory() as tmp:
+                path = str(Path(tmp) / "volt.pt")
+                save_volt_state(path, model)
+                restored = restore_volt_state(
+                    path, VoltGP(mean=make_mean("ewma", k=300)), BMGP())
+            return [rollouts(torch.Generator(device=dev).manual_seed(24), st,
+                             x1, y1, test_x1, nsample=nsample)
+                    for st in (model, restored)]
+
+        (s_a, s_b), secs, launches = _timed(torch, dev, native, checkpoint)
+        item("checkpoint", secs, launches)
+        if not torch.equal(s_a, s_b) or not torch.isfinite(s_a).all():
+            fail("mesh: the restored state forecasts differently")
+
+        # ---- 4: a profiler trace of one warm call -------------------------
+        px8, ptx8, pys8, _, _ = _mesh_inputs(torch, vt, dev, profile_b, n, h,
+                                             1, 25)
+        pcfg8 = PipelineConfig(output="quantiles", gpcv_iters=profile_iters,
+                               vol_iters=profile_iters,
+                               data_iters=profile_iters, nsample=nsample)
+        g8 = torch.Generator(device=dev).manual_seed(26)
+        fit_forecast_batch(g8, px8, pys8, ptx8, pcfg8)  # warm
+        _reset_peak(torch, dev)
+
+        def traced():
+            with tempfile.TemporaryDirectory() as tmp:
+                with trace(tmp):
+                    fit_forecast_batch(g8, px8, pys8, ptx8, pcfg8)
+                    _sync(torch, dev)
+                text = (Path(tmp) / "trace.json").read_text()
+            return text
+
+        text, secs, launches = _timed(torch, dev, native, traced)
+        item("profiled_call", secs, launches)
+        named = {k: k in text for k in ("ewma_filter_kernel",
+                                         "kalman_forward_kernel",
+                                         "kalman_backward_kernel")}
+        print(f"   the Chrome trace ({len(text) / 2 ** 20:.1f} MiB) names "
+              f"{named}")
+        if dev == "cuda" and not all(named.values()):
+            fail("mesh: the profiler trace does not name K1's and S1's "
+                 "kernels")
+
+        # ---- 5: the graft entry's step on the card -----------------------
+        step, args = graft_entry.entry(dev)
+        _reset_peak(torch, dev)
+        (mll, paths), secs, launches = _timed(torch, dev, native,
+                                              lambda: step(*args))
+        item("entry", secs, launches)
+        if not bool(torch.isfinite(mll)) or \
+                not bool(torch.isfinite(paths).all()):
+            fail("mesh: entry() gave non-finite outputs")
+        if dev == "cuda" and (launches.get(K1_SYM, 0) < 1
+                              or launches.get(S1_SYMS[0], 0) < 1):
+            fail(f"mesh: entry() launched {launches}")
+
+        # ---- 6: two examples at their defaults ---------------------------
+        _reset_peak(torch, dev)
+        live, secs, launches = _timed(
+            torch, dev, native,
+            lambda: live_serving.main(["--device", dev, *examples[0]]))
+        item("live_serving", secs, launches)
+        result["live_serving"]["refit_s_per_tick"] = live["refit_s"]
+        print(f"   live_serving warm refit seconds per tick: "
+              f"{[round(v, 4) for v in live['refit_s']]} ({CARD})")
+        if not bool(live["ok"].all()):
+            fail("mesh: live_serving flagged a failed asset")
+        _reset_peak(torch, dev)
+        _, secs, launches = _timed(
+            torch, dev, native,
+            lambda: option_pricing.main(["--device", dev, *examples[1]]))
+        item("option_pricing_example", secs, launches)
+
+    unchecked = sorted(seen - _checked_shapes())
+    print(f"   K1 and S1 launch shapes in the phase: {sorted(seen)}")
+    if dev == "cuda":
+        if unchecked:
+            fail(f"mesh: K1 or S1 launched at shapes that the kernels phase "
+                 f"does not hold against their plain versions: {unchecked}")
+        for sym in (K1_SYM, *S1_SYMS):
+            if mesh_launches.get(sym, 0) < 1:
+                fail(f"mesh: {sym} was not launched by the sharded path")
+    result["launches"] = mesh_launches
+    return mesh_launches, result
+
+
 def check_small_agreement(torch, vt):
     """Card against CPU on the parity tests' small input and noise: the
     main path, the dense GPCV family (its Laplace init, compared on
@@ -1983,6 +2372,11 @@ def smoke():
     base_launches, baselines = run_baselines(torch, vt, native)
     done(t0)
 
+    t0 = phase("mesh: the sharded main path (worlds of 1 and 2), "
+               "checkpoints, a profiler trace, entry() and two examples")
+    mesh_launches, mesh = run_mesh(torch, vt, native)
+    done(t0)
+
     for k in kernels:
         path, counts = paths[k["name"]]
         k["path"] = path
@@ -1995,7 +2389,8 @@ def smoke():
             "fbm_path": fbm_launches.get(sym, 0),
             "multitask": mt_launches.get(sym, 0),
             "long_main_path": long_launches.get(sym, 0),
-            "baselines": base_launches.get(sym, 0)}
+            "baselines": base_launches.get(sym, 0),
+            "mesh": mesh_launches.get(sym, 0)}
         if k["launches"] < 1:
             fail(f"kernel {k['name']} was not launched by its path ({path})")
 
@@ -2009,7 +2404,7 @@ def smoke():
                       "gpcv_sparse": gpcv_sparse,
                       "option_pricing": pricing, "fbm_path": fbm,
                       "multitask": multitask, "long_main_path": long_main,
-                      "baselines": baselines}))
+                      "baselines": baselines, "mesh": mesh}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2038,6 +2433,7 @@ PHASES = {
         torch, vt, native)[1],
     "baselines": lambda torch, vt, native: run_baselines(torch, vt,
                                                          native)[1],
+    "mesh": lambda torch, vt, native: run_mesh(torch, vt, native)[1],
 }
 PHASES_TAG = "chip_smoke phases: "
 

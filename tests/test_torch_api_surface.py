@@ -15,11 +15,9 @@ import volt_tpu_torch
 
 # name -> the ROADMAP.md item that ports it, or why the port leaves it out
 NOT_YET = {
-    # item 23: the mesh
-    **dict.fromkeys(("make_mesh", "multihost_initialize", "shard_batch"),
-                    "item 23"),
-    # item 5: the associative-scan forms
-    **dict.fromkeys(("tridiag_solve", "brownian_noise_mll"), "item 5"),
+    # "Do not port": ``ConfigEq`` keys jax.jit's static-argument cache; the
+    # port's modules are nn.Modules and its configs frozen dataclasses
+    "ConfigEq": "do not port",
     # "Do not port": only the JAX package's tests use the fixed-covariance
     # MLL; the port builds the spectral basis with int64 angles, so the
     # JAX package's int32 bound on n does not apply
@@ -33,7 +31,11 @@ def _pairs():
     for info in pkgutil.walk_packages(volt_tpu_torch.__path__,
                                       "volt_tpu_torch."):
         ref = info.name.replace("volt_tpu_torch", "volt_tpu", 1)
-        if importlib.util.find_spec(ref) is not None:
+        try:
+            found = importlib.util.find_spec(ref) is not None
+        except ModuleNotFoundError:  # no counterpart of its package either
+            found = False
+        if found:
             pairs.append((info.name, ref))
     return [("volt_tpu_torch", "volt_tpu"), *pairs]
 

@@ -584,3 +584,75 @@ def test_baseline_drivers_on_the_card(cuda, tmp_path):
     s = basic_wind_rollouts(x, f[:60] / f[0], x[-1] + x[1:5], "rbf",
                             mean_name="constant", train_iters=10, nsample=8)
     assert s.shape == (8, 4) and s.is_cuda and torch.isfinite(s).all()
+
+
+def test_one_rank_nccl_mesh_equals_unsharded(cuda):
+    """A world of one over NCCL: ``fit_forecast_batch(mesh=make_mesh())``
+    runs its collectives (a path all-gather for the fan) and equals the
+    unsharded call on the same normals within 1e-6 of max|fan|."""
+    import datetime
+    import socket
+
+    import torch.distributed as dist
+
+    from volt_tpu_torch.parallel import (PipelineConfig, fit_forecast_batch,
+                                         make_mesh, multihost_initialize)
+
+    b, n, h, s = 4, 48, 5, 16
+    x, f = _sabr(b, n, 9)
+    x, f = x.cuda(), f.cuda()
+    test_x = x[-1] + torch.arange(1, h + 1, device="cuda") / 252.0
+    g = torch.Generator(device="cuda").manual_seed(8)
+    noise = {"vol_r0": torch.randn(b, s, device="cuda", generator=g),
+             "vol_z": torch.randn(b, s, h, device="cuda", generator=g),
+             "zs": torch.randn(b, s, h, device="cuda", generator=g)}
+    cfg = PipelineConfig(gpcv_iters=12, vol_iters=12, data_iters=12, k=10,
+                         nsample=s, output="quantiles")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    assert multihost_initialize(f"127.0.0.1:{port}", 1, 0, backend="nccl",
+                                timeout=datetime.timedelta(seconds=60))
+    try:
+        mesh = make_mesh()
+        assert mesh.backend == "nccl" and mesh.device == torch.device("cuda",
+                                                                      0)
+        got, _ = fit_forecast_batch(None, x, f, test_x, cfg, noise=noise,
+                                    mesh=mesh)
+    finally:
+        dist.destroy_process_group()
+    want, _ = fit_forecast_batch(None, x, f, test_x, cfg, noise=noise)
+    torch.testing.assert_close(got, want, rtol=0.0,
+                               atol=1e-6 * want.abs().max().item())
+
+
+def test_checkpoint_roundtrip_from_the_card(cuda, tmp_path):
+    """A Volt state fitted on the card, saved, restored onto the card:
+    identical forecasts on the same draws."""
+    from volt_tpu_torch.models import BMGP, VoltGP, make_mean
+    from volt_tpu_torch.rollouts import rollouts
+    from volt_tpu_torch.train import train_vol_model, train_volt_magpie
+    from volt_tpu_torch.utils import restore_volt_state, save_volt_state
+
+    x, f = _sabr(1, 60, 10)
+    x, f = x.cuda(), f.reshape(-1).cuda()
+    vol = torch.full((60,), 0.2, device="cuda")
+    vol_state = train_vol_model(x, vol, train_iters=10)
+    model = train_volt_magpie(x, f[1:], vol_state, vol, train_iters=10, k=20)
+    path = str(tmp_path / "volt.pt")
+    save_volt_state(path, model)
+    restored = restore_volt_state(path, VoltGP(mean=make_mean("ewma", k=20)),
+                                  BMGP())
+    assert restored.train_y.is_cuda
+    test_x = x[-1] + torch.arange(1, 6, device="cuda") / 252.0
+    s1, s2 = (rollouts(torch.Generator(device="cuda").manual_seed(0), st, x,
+                       f, test_x, nsample=16) for st in (model, restored))
+    torch.testing.assert_close(s2, s1, rtol=0.0, atol=0.0)
+
+
+def test_dryrun_multichip_on_the_card(cuda):
+    """``dryrun_multichip``'s default device: two gloo ranks on the card
+    run every sharded pipeline at tiny shapes."""
+    from volt_tpu_torch import graft_entry
+
+    graft_entry.dryrun_multichip(2, timeout=300.0)

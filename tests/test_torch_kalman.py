@@ -21,7 +21,9 @@ import torch
 from torch_parity import close, j32, t32
 
 from volt_tpu.ops.tridiag import (brownian_noise_filter as j_filter,
-                                  brownian_noise_mll_kalman as j_mll)
+                                  brownian_noise_mll as j_scan_mll,
+                                  brownian_noise_mll_kalman as j_mll,
+                                  tridiag_solve as j_tridiag_solve)
 
 from volt_tpu_torch.ops import tridiag as ttd
 
@@ -59,6 +61,56 @@ def test_mll_value_and_gradients(shared_v):
         # d/dv is a difference of neighbouring d/d(delta) (the transpose of
         # the increments), so its float32 error is relative to max|grad|
         close(t.grad, g, RTOL, 1e-6 * float(np.max(np.abs(g))))
+
+
+@pytest.mark.parametrize("shared_v", [False, True])
+def test_scan_mll_value_and_gradients(shared_v):
+    """The associative-scan MLL (two affine doubling scans) against JAX's,
+    value and gradients, and against the Kalman form of the same
+    function."""
+    v, s2, r = _inputs(shared_v)
+    tv, ts, tr = (t32(a).requires_grad_() for a in (v, s2, r))
+    got = ttd.brownian_noise_mll(tv, ts, tr)
+    # the value sums terms of the size of |log increment| ~ 9 that cancel
+    # to O(0.1): float32 resolves them to about 1e-6
+    close(got, jax.jit(j_scan_mll)(j32(v), j32(s2), j32(r)), RTOL, 1e-5)
+    close(got, ttd.brownian_noise_mll_kalman(t32(v), t32(s2), t32(r)), RTOL,
+          1e-5)
+    weights = np.arange(1, 5, dtype=np.float32)
+    (got * t32(weights)).sum().backward()
+    grads = jax.jit(jax.grad(
+        lambda a, b, c: jnp.sum(j_scan_mll(a, b, c) * weights),
+        argnums=(0, 1, 2)))(j32(v), j32(s2), j32(r))
+    wide = [torch.tensor(a, dtype=torch.float64, requires_grad=True)
+            for a in (v, s2, r)]
+    (ttd.brownian_noise_mll(*wide)
+     * torch.tensor(weights, dtype=torch.float64)).sum().backward()
+    # the scan form's gradients pass through 1/increments: in float32 both
+    # packages' d/dv lie up to 3e-5 of its largest magnitude from a float64
+    # run (measured on these inputs), so 1e-4 of it is the tolerance
+    for t, g, w in zip((tv, ts, tr), grads, wide):
+        assert t.grad.shape == t.shape
+        scale = float(np.max(np.abs(g)))
+        close(t.grad, g, 1e-4, 1e-4 * scale)
+        close(t.grad.double(), w.grad, 1e-4, 1e-4 * scale)
+
+
+def test_tridiag_solve():
+    """``T x = b`` from the LDL pivots, against JAX's and a dense solve."""
+    rs = np.random.default_rng(4)
+    n = 37
+    off = (0.3 * rs.standard_normal((3, n - 1))).astype(np.float32)
+    diag = (1.5 + rs.random((3, n))).astype(np.float32)
+    b = rs.standard_normal((3, n)).astype(np.float32)
+    d, _ = ttd.tridiag_ldl_pivots(t32(diag), t32(off))
+    got = ttd.tridiag_solve(d, t32(off), t32(b))
+    close(got, jax.jit(j_tridiag_solve)(j32(d.numpy()), j32(off), j32(b)),
+          RTOL, 1e-6)
+    dense = (np.apply_along_axis(np.diag, -1, diag)
+             + np.apply_along_axis(np.diag, -1, off, 1)
+             + np.apply_along_axis(np.diag, -1, off, -1))
+    close(got, np.linalg.solve(dense.astype(np.float64), b[..., None])[..., 0],
+          1e-4, 1e-5)
 
 
 @pytest.mark.parametrize("shared_v", [False, True])

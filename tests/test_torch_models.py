@@ -144,6 +144,31 @@ def test_bmgp_spectral_mll_and_gradient(data):
     _grads_close(tm, jax.grad(lambda p: jnp.sum(jmll(p)))(params), 1e-4)
 
 
+def test_bmgp_mll_fast(data):
+    """The eigenbasis MLL (``grid_cache`` / ``mll_fast``) against JAX's,
+    value and gradient, and against the spectral MLL; the FBM kernel has
+    no cache."""
+    params = _bm_params(4)
+    log_vol = np.log(data["vol"]).astype(np.float32)
+    jm, x = JBMGP(), j32(data["x"])
+    cache = jm.grid_cache(x)
+
+    def jmll(p):
+        return jax.vmap(lambda pp, y: jm.mll_fast(pp, x, y, cache))(
+            p, j32(log_vol))
+
+    tm = load_jax_params(BMGP(), params)
+    tx = t32(data["x"])
+    mll = tm.mll_fast(tx, t32(log_vol), tm.grid_cache(tx))
+    close(mll, jmll(params), 1e-4)
+    with torch.no_grad():
+        close(mll, tm.mll_spectral(tm.spectral_cache(tx, t32(log_vol))),
+              1e-4)
+    mll.sum().backward()
+    _grads_close(tm, jax.grad(lambda p: jnp.sum(jmll(p)))(params), 1e-4)
+    assert BMGP(kernel="fbm").grid_cache(tx) is None
+
+
 def test_bmgp_forecast_state_and_samples(data):
     params = _bm_params(4)
     log_vol = np.log(data["vol"]).astype(np.float32)

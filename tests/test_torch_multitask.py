@@ -552,23 +552,32 @@ STD = dict(gpcv_iters=12, vol_iters=12, data_iters=12, nsample=S,
 
 
 def jax_multitask_init(key, x, prices, config):
-    """JAX's cold initial values, as its pipeline draws them from ``key``:
-    ``(k_lik, k_roll)``; the likelihood, the variational GP's init and the
-    vol GP's from ``k_lik``; the Volt models' broadcast over tasks."""
-    k_lik, _ = jax.random.split(key)
-    yy = jtrain.scaled_returns(j32(x), j32(prices)).T
+    """JAX's cold initial values of ``volt_tpu.parallel.fit_forecast_multitask``
+    for ``prices (T, n+1)``, as its pipeline draws them from ``key`` inside
+    its compiled program: ``(k_lik, k_roll)``; the likelihood, the
+    variational GP's init and the vol GP's from ``k_lik``; the Volt models'
+    broadcast over tasks."""
+    tasks = prices.shape[0]
     lik = JLik(param=config.gpcv_param)
-    lp = lik.init(key=k_lik)
-    jm = JMTVGP(T, rank=config.rank, q=config.gpcv_q)
-    p = jm.initialize_variational_parameters(jm.init(j32(x), key=k_lik), lik,
-                                             lp, j32(x), yy)
+    jm = JMTVGP(tasks, rank=config.rank, q=config.gpcv_q)
     volt = JVolt(mean=j_make_mean(config.mean_func, k=config.k,
                                   theta=config.theta))
-    return jax_tree_np({
-        "gpcv": {"model": p, "lik": lp},
-        "vol": JMTBMGP(T, rank=config.rank).init(key=k_lik),
-        "volt": jax.tree.map(lambda a: jnp.broadcast_to(a, (T, *a.shape)),
-                             volt.init())})
+
+    @jax.jit
+    def init(key, x, prices):
+        k_lik, _ = jax.random.split(key)
+        yy = jtrain.scaled_returns(x, prices).T
+        lp = lik.init(key=k_lik)
+        p = jm.initialize_variational_parameters(jm.init(x, key=k_lik), lik,
+                                                 lp, x, yy)
+        return {
+            "gpcv": {"model": p, "lik": lp},
+            "vol": JMTBMGP(tasks, rank=config.rank).init(key=k_lik),
+            "volt": jax.tree.map(
+                lambda a: jnp.broadcast_to(a, (tasks, *a.shape)),
+                volt.init())}
+
+    return jax_tree_np(init(key, j32(x), j32(prices)))
 
 
 @pytest.fixture(scope="module")

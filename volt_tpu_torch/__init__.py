@@ -25,8 +25,15 @@ chain (:mod:`volt_tpu_torch.gp.kronecker`,
 ``train_basic_model``, ``nonvol_rollouts``, the LSTM of
 :mod:`volt_tpu_torch.models.lstm`); the data edges of
 :mod:`volt_tpu_torch.data` and the backtest drivers and CLIs of
-:mod:`volt_tpu_torch.experiments`.  Not yet: the mesh, checkpoints and
-profiling, the examples (ROADMAP.md).
+:mod:`volt_tpu_torch.experiments`; the scale-out layer
+(:func:`volt_tpu_torch.parallel.make_mesh`, ``multihost_initialize`` and
+``mesh=`` on the batched, multitask and pricing entries: run a world of
+gloo ranks on the CPU with :func:`volt_tpu_torch.parallel.spawn_world` or
+``torchrun --nproc-per-node``), checkpoints and profiling
+(:mod:`volt_tpu_torch.utils`), the graft entry
+(:mod:`volt_tpu_torch.graft_entry`) and the examples
+(``python -m volt_tpu_torch.examples.<name> --device cuda``).  Not ported:
+what ROADMAP.md's "Do not port" names.
 """
 
 __version__ = "0.2.0"

@@ -173,6 +173,31 @@ class BMGP(nn.Module):
         logdet = torch.sum(torch.log(d), dim=-1) + torch.log(s)
         return -0.5 * (quad + logdet + n * math.log(2.0 * math.pi)) / n
 
+    def grid_cache(self, x):
+        """``(evals, evecs)`` of ``min(x)`` (the eigenvalues clamped at 0),
+        one ``eigh`` per grid, for :meth:`mll_fast`; ``None`` for the FBM
+        kernel.  Not on the fit path (the spectral and Kalman MLLs are):
+        an independent form of the same MLL."""
+        if not isinstance(self.kernel, BMKernel):
+            return None
+        evals, evecs = torch.linalg.eigh(
+            torch.minimum(x[..., :, None], x[..., None, :]))
+        return torch.clamp(evals, min=0.0), evecs
+
+    def mll_fast(self, x, y, cache):
+        """The dense MLL / n in O(n^2) a step from :meth:`grid_cache`:
+        ``K + s I = vol M + s I`` is diagonal in the eigenbasis of the fixed
+        ``M = min(x)``."""
+        evals, evecs = cache
+        n = y.shape[-1]
+        vol = self.kernel.vol()[..., 0]
+        noise = self.likelihood.noise()[..., 0]
+        rot = torch.einsum("...ij,...i->...j", evecs, y - self.mean(x))
+        denom = vol[..., None] * evals + noise[..., None]
+        quad = torch.sum(rot * rot / denom, dim=-1)
+        logdet = torch.sum(torch.log(denom), dim=-1)
+        return -0.5 * (quad + logdet + n * math.log(2.0 * math.pi)) / n
+
     def forecast_state(self, train_x, train_y):
         """Filtered ``(mean, var)`` of the latent residual at the last train
         point given all observations (the Kalman filter, kernel S1 on

@@ -34,8 +34,10 @@ from .mvn import conditional, mvn_kl, mvn_log_prob, mvn_log_prob_chol, sample_mv
 from .quadrature import DEFAULT_NUM_LOCS, expected_value, gauss_hermite_nodes
 from .tridiag import (
     brownian_noise_filter,
+    brownian_noise_mll,
     brownian_noise_mll_kalman,
     tridiag_ldl_pivots,
+    tridiag_solve,
 )
 from .volint import (brownian_cholesky, cumtrapz_weights,
                      min_index_covariance, vol_integral)
@@ -83,8 +85,10 @@ __all__ = [
     "expected_value",
     "gauss_hermite_nodes",
     "brownian_noise_filter",
+    "brownian_noise_mll",
     "brownian_noise_mll_kalman",
     "tridiag_ldl_pivots",
+    "tridiag_solve",
     "brownian_cholesky",
     "cumtrapz_weights",
     "min_index_covariance",

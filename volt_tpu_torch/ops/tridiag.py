@@ -4,6 +4,10 @@
 * :func:`tridiag_ldl_pivots` — LDL pivots and logdet of an SPD
   tridiagonal from the leading-minor recurrence, a scan over normalised
   2x2 matrix products (doubling scan, as in :mod:`.bidiag`).
+* :func:`tridiag_solve` / :func:`brownian_noise_mll` — the solve from
+  those pivots and the min-kernel MLL through it: two affine doubling
+  scans (:func:`.bidiag.affine_scan`), no sequential loop.  Plain torch on
+  every device; the fit runs the Kalman form below.
 * :func:`brownian_noise_mll_kalman` / :func:`brownian_noise_filter` — the
   scalar random-walk Kalman filter.  On CUDA tensors both run kernel S1
   (``csrc/kalman.cu``, forward and adjoint); on CPU tensors they run the
@@ -20,6 +24,8 @@ from .. import native
 
 __all__ = [
     "tridiag_ldl_pivots",
+    "tridiag_solve",
+    "brownian_noise_mll",
     "brownian_noise_mll_kalman",
     "brownian_noise_filter",
     "kalman_forward_cuda",
@@ -72,6 +78,47 @@ def tridiag_ldl_pivots(diag, off):
     d = p_top / p_bot
     logdet = logs[..., -1] + torch.log(torch.abs(p_top[..., -1]))
     return d, logdet
+
+
+def tridiag_solve(d, off, b):
+    """Solve ``T x = b`` given the LDL pivots ``d`` of the SPD tridiagonal
+    ``T`` with off-diagonal ``off``: ``T = L diag(d) L^T`` with the unit
+    lower-bidiagonal ``L[i+1, i] = off_i / d_i``, so a forward and a
+    backward first-order recurrence, each an affine doubling scan."""
+    from .bidiag import affine_scan
+
+    l = off / d[..., :-1]
+    zero = torch.zeros_like(b[..., :1])
+    # forward: z_0 = b_0, z_i = b_i - l_{i-1} z_{i-1}
+    z = affine_scan(torch.cat([zero, -l], dim=-1), b)
+    # backward: x_{n-1} = y_{n-1}, x_i = y_i - l_i x_{i+1}
+    return affine_scan(torch.cat([-l, zero], dim=-1), z / d, reverse=True)
+
+
+def brownian_noise_mll(v, sigma2, resid):
+    """``log N(resid; 0, K + sigma2 I) / n`` for the min-kernel ``K`` with
+    integral values ``v (..., n)`` (strictly increasing, positive) through
+    its tridiagonal precision ``W``: ``logdet(K + s I) = sum log D_i +
+    logdet(I + s W)`` and ``(K + s I)^{-1} r = (I + s W)^{-1} W r``, with
+    the increments ``D``; O(n) work in log-depth scans, no factorisation.
+    The same function as :func:`brownian_noise_mll_kalman`."""
+    n = v.shape[-1]
+    delta = torch.diff(v, dim=-1, prepend=torch.zeros_like(v[..., :1]))
+    inv_d = 1.0 / delta
+    s2 = torch.as_tensor(sigma2, dtype=v.dtype, device=v.device)[..., None]
+    w_diag = inv_d + torch.cat([inv_d[..., 1:],
+                                torch.zeros_like(inv_d[..., :1])], dim=-1)
+    w_off = -inv_d[..., 1:]
+    a_off = s2 * w_off
+    d, logdet_a = tridiag_ldl_pivots(1.0 + s2 * w_diag, a_off)
+    logdet = torch.sum(torch.log(delta), dim=-1) + logdet_a
+    r = resid
+    zero = torch.zeros_like(r[..., :1])
+    g = (w_diag * r + torch.cat([w_off * r[..., 1:], zero], dim=-1)
+         + torch.cat([zero, w_off * r[..., :-1]], dim=-1))
+    quad = torch.sum(r * tridiag_solve(d, a_off, g),
+                     dim=-1)
+    return -0.5 * (quad + logdet + n * _LOG_2PI) / n
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
 """The whole Volt pipeline, batched over assets (port of
-:mod:`volt_tpu.parallel.pipeline` without a mesh).
+:mod:`volt_tpu.parallel.pipeline`).
 
 ``fit_forecast_batch`` runs, for ``B`` assets at once on one device:
 
@@ -18,6 +18,11 @@ leading asset axis and each Adam loop minimises the summed per-asset
 losses, which updates every asset exactly as its own Adam would.  The
 dense GPCV init's and the FBM kernel's Cholesky jitter ladders run per
 asset, as each asset's own program does under ``vmap``.
+
+With ``mesh=`` (:func:`volt_tpu_torch.parallel.make_mesh`) each rank fits
+its block of assets and rolls out its share of the paths; the fan needs
+every path of an asset, so the paths are gathered over the ``path`` axis
+before the quantiles.
 """
 
 from __future__ import annotations
@@ -37,7 +42,7 @@ from ..train import (_fit_bmgp, _fit_gpcv, _fit_volt, _is_equispaced,
                      scaled_returns)
 
 __all__ = ["PipelineConfig", "fit_forecast", "fit_forecast_batch",
-           "warm_start"]
+           "shard_batch", "warm_start"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -135,8 +140,42 @@ class _StageClock:
         self._last = now
 
 
+def shard_batch(mesh, output: str = "samples"):
+    """``(in, out)`` layouts of the batched pipeline on an ``(asset, path)``
+    mesh, as :meth:`Mesh.shard` / :meth:`Mesh.gather` take them: the
+    per-asset inputs split over ``asset``; the paths ``(B, S, H)`` over
+    ``(asset, path)``; a quantile fan carries no path axis (the paths were
+    reduced) and splits over ``asset`` only.  The layouts name the mesh's
+    axes, so they are the same on every mesh."""
+    return ("asset",), (("asset",) if output == "quantiles"
+                        else ("asset", "path"))
+
+
+def _shard_rows(mesh, tree, rows: int):
+    """The rank's asset rows of every leaf of ``tree``: a leaf with ``rows``
+    leading entries is global and split; one with ``rows / asset`` is
+    already the rank's block (a sharded call's ``aux``)."""
+    if isinstance(tree, dict):
+        return {k: _shard_rows(mesh, v, rows) for k, v in tree.items()}
+    if tree.shape[0] == rows:
+        return mesh.shard(tree, ("asset",))
+    if tree.shape[0] * mesh.axis_size("asset") == rows:
+        return tree
+    raise ValueError(f"a per-asset leaf of {tree.shape[0]} rows fits neither "
+                     f"the batch of {rows} nor its shard")
+
+
+def _local_paths(mesh, nsample: int) -> int:
+    paths = mesh.axis_size("path")
+    if nsample % paths:
+        raise ValueError(f"nsample={nsample} does not split over the "
+                         f"{paths}-way 'path' mesh axis")
+    return nsample // paths
+
+
 def fit_forecast_batch(generator, train_x, train_ys, test_x,
-                       config: PipelineConfig, init_params=None, noise=None):
+                       config: PipelineConfig, init_params=None, noise=None,
+                       mesh=None):
     """Fit + forecast a batch of assets.
 
     ``train_x (n,)`` is the return grid, ``train_ys (B, n+1)`` the prices,
@@ -156,10 +195,41 @@ def fit_forecast_batch(generator, train_x, train_ys, test_x,
 
     ``init_params``: optional warm start ``{"gpcv", "vol", "volt"}``, e.g.
     :func:`warm_start` of a previous ``aux``.
+
+    ``mesh``: an ``(asset, path)`` :class:`~volt_tpu_torch.parallel.Mesh`.
+    Every rank passes the global ``train_ys``, ``init_params`` and
+    ``noise`` (or, for ``init_params``, its own block, as its sharded
+    ``aux`` gives it to :func:`warm_start`) and takes its rows: ``B`` must
+    divide by the ``asset`` axis and ``nsample`` by the ``path`` axis.  It
+    fits its ``B / asset`` assets (repeated alike on each rank of the
+    ``path`` axis) and rolls out ``nsample / path`` paths of each.
+    ``out`` is the rank's block, ``(B / asset, S / path, H)`` paths or the
+    ``(B / asset, L, H)`` fan of all the paths (gathered over ``path``
+    first), and ``aux`` holds the rank's assets; ``mesh.gather(out,
+    shard_batch(mesh, output)[1])`` is the global ``out``.  With ``noise``
+    the result equals the unsharded call's.  With a ``generator`` alone a
+    rank's draws come from a stream fixed by ``generator.initial_seed()``
+    and its coordinates (the initial values by its ``asset`` coordinate,
+    the paths by both), so they depend on the mesh's shape, unlike JAX's
+    key.
     """
     config = _resolve_config(config)
     _check_min_length(train_x)
     _check_spectral_grid(train_x, config)
+    # the initial values' and the paths' generators, and the paths to draw
+    fit_generator = draw_generator = generator
+    nsample = config.nsample
+    if mesh is not None:  # the rank's assets and paths
+        rows = train_ys.shape[0]
+        nsample = _local_paths(mesh, config.nsample)
+        train_ys = mesh.shard(train_ys, ("asset",))
+        if init_params is not None:
+            init_params = _shard_rows(mesh, init_params, rows)
+        if noise is not None:
+            noise = {k: mesh.shard(v, ("asset", "path"))
+                     for k, v in noise.items()}
+        fit_generator = mesh.seeded(generator, ("asset",))
+        draw_generator = mesh.seeded(generator, ("asset", "path"))
     device, dtype = train_ys.device, train_ys.dtype
     batch = train_ys.shape[:-1]
     clock = _StageClock(device)
@@ -193,7 +263,8 @@ def fit_forecast_batch(generator, train_x, train_ys, test_x,
     log_y = torch.log(train_ys[..., 1:])
     volt = VoltGP(mean=make_mean(config.mean_func, k=config.k),
                   integral_rule=config.integral_rule)
-    start(volt, "volt", lambda: volt.init(batch, dtype, device, generator))
+    start(volt, "volt", lambda: volt.init(batch, dtype, device,
+                                          fit_generator))
     data_losses = _fit_volt(volt, train_x, log_y, vol, config.data_iters,
                             config.data_lr)
     model = volt.fit_state(train_x, log_y, vol, vol_state)
@@ -204,24 +275,29 @@ def fit_forecast_batch(generator, train_x, train_ys, test_x,
         use_theta = config.theta is not None
         latent_mean = (torch.mean(torch.log(train_ys), dim=-1) if use_theta
                        else torch.zeros((), dtype=dtype, device=device))
-        h, s = test_x.shape[-1], config.nsample
+        h = test_x.shape[-1]
         if noise is None:
             vol_noise = None
         elif config.kernel == "bm":
             vol_noise = (noise["vol_r0"], noise["vol_z"])
         else:  # the dense sampler's normals, (S, B, H)
             vol_noise = noise["vol_z"].movedim(-2, 0)
-        pred_vol = sample_vol_paths(vol_state, test_x, s, generator,
-                                    vol_noise, assume_future=True)
-        zs = (torch.randn(*batch, s, h, dtype=dtype, device=device,
-                          generator=generator) if noise is None
+        pred_vol = sample_vol_paths(vol_state, test_x, nsample,
+                                    draw_generator, vol_noise,
+                                    assume_future=True)
+        zs = (torch.randn(*batch, nsample, h, dtype=dtype, device=device,
+                          generator=draw_generator) if noise is None
               else noise["zs"])
         samples = _rollout_volt_scan(model, latent_mean, test_x, pred_vol,
                                      zs, use_theta,
                                      config.theta if use_theta else 0.0)
+        if config.output == "quantiles" and mesh is not None:
+            samples = mesh.gather(samples, (None, "path"))
         # per-asset failure flag: a diverged asset stays in its own lanes
-        ok = (torch.all(torch.isfinite(samples).flatten(-2), dim=-1)
-              & torch.isfinite(gpcv_losses[-1])
+        bad = ~torch.all(torch.isfinite(samples).flatten(-2), dim=-1)
+        if config.output == "samples" and mesh is not None:
+            bad = mesh.all_reduce(bad.to(dtype), "path") > 0
+        ok = (~bad & torch.isfinite(gpcv_losses[-1])
               & torch.isfinite(vol_losses[-1])
               & torch.isfinite(data_losses[-1]))
         if config.output == "quantiles":

@@ -1,5 +1,5 @@
 """The Kronecker multitask Volt pipeline (port of
-:mod:`volt_tpu.parallel.pipeline_multitask` without a mesh).
+:mod:`volt_tpu.parallel.pipeline_multitask`).
 
 ``fit_forecast_multitask`` runs, for ``T`` correlated assets on one
 device:
@@ -17,6 +17,11 @@ device:
 
 Per-task ``ok`` flags: a non-finite joint stage fails every task.
 :func:`warm_start_multitask` seeds a refit from a previous fit's ``aux``.
+
+On a mesh the joint stages (1, 2 and the correlated vol draws of 4) run
+alike on every rank, since their coupling is ``T x T``; the per-task Volt
+fits and the rollout take the rank's tasks (the ``asset`` axis) and its
+share of the paths (the ``path`` axis).
 """
 
 from __future__ import annotations
@@ -33,7 +38,7 @@ from ..rollouts import _rollout_volt_scan
 from ..train import (_fit_multitask_vol, _fit_volt, _multitask_gpcv,
                      _multitask_scale, adam_loop, scaled_returns)
 from .pipeline import (_StageClock, _check_min_length, _check_spectral_grid,
-                       _shift_tail)
+                       _local_paths, _shard_rows, _shift_tail)
 
 __all__ = ["MultitaskPipelineConfig", "fit_forecast_multitask",
            "warm_start_multitask"]
@@ -78,7 +83,7 @@ def _check_config(config: MultitaskPipelineConfig):
 
 def fit_forecast_multitask(generator, train_x, train_ys, test_x,
                            config: MultitaskPipelineConfig, init_params=None,
-                           noise=None):
+                           noise=None, mesh=None):
     """Fit + forecast ``T`` correlated assets.
 
     ``train_x (n,)`` is the shared return grid, ``train_ys (T, n+1)`` the
@@ -98,6 +103,19 @@ def fit_forecast_multitask(generator, train_x, train_ys, test_x,
 
     ``init_params``: ``{"gpcv", "vol", "volt"}``, e.g.
     :func:`warm_start_multitask` of a previous ``aux``.
+
+    ``mesh``: an ``(asset, path)`` :class:`~volt_tpu_torch.parallel.Mesh`;
+    every rank passes the global inputs.  ``T`` must divide by the
+    ``asset`` axis and ``nsample`` by the ``path`` axis.  The joint GPCV,
+    the multitask vol GP and the correlated vol draws run on every rank
+    alike (their generator is fixed by ``generator.initial_seed()``); the
+    rank fits the Volt models of its ``T / asset`` tasks (``init_params
+    ["volt"]`` global, or the rank's block as its ``aux`` holds it) and
+    rolls out ``nsample / path`` paths of each (a generator alone: from a
+    stream fixed by the seed and its coordinates, so the draws depend on
+    the mesh's shape).  ``out`` and the per-task entries of ``aux`` are the
+    rank's block, the fan of all the paths; the joint parameters are
+    whole.  With ``noise`` the result equals the unsharded call's.
     """
     _check_config(config)
     _check_min_length(train_x)
@@ -105,6 +123,11 @@ def fit_forecast_multitask(generator, train_x, train_ys, test_x,
     device, dtype = train_ys.device, train_ys.dtype
     num_tasks = train_ys.shape[0]
     clock = _StageClock(device)
+    nsample, draw_generator = config.nsample, generator
+    if mesh is not None:
+        nsample = _local_paths(mesh, config.nsample)
+        draw_generator = mesh.seeded(generator, ("asset", "path"))
+        generator = mesh.seeded(generator, ())
 
     # ---- stage 1: joint (Kronecker) GPCV over all T tasks ------------------
     yy = scaled_returns(train_x, train_ys).T  # (n, T)
@@ -133,38 +156,56 @@ def fit_forecast_multitask(generator, train_x, train_ys, test_x,
     clock.mark("vol")
 
     # ---- stage 3: per-task Volt data models (Kalman MLL) -------------------
-    log_ys = torch.log(train_ys[..., 1:])  # (T, n)
     volt = VoltGP(mean=make_mean(
         config.mean_func, k=config.k,
         theta=config.theta if config.theta is not None else 0.5),
         integral_rule=config.integral_rule)
     volt.init((num_tasks,), dtype, device, generator)
+    if mesh is not None:  # the rank's tasks of the whole init
+        load_jax_params(volt, _shard_rows(mesh, params_tree(volt),
+                                          num_tasks), device)
+        train_ys, vols = (mesh.shard(a, ("asset",)) for a in (train_ys,
+                                                              vols))
     if init_params is not None:
-        load_jax_params(volt, init_params["volt"], device)
+        load_jax_params(volt, init_params["volt"] if mesh is None else
+                        _shard_rows(mesh, init_params["volt"], num_tasks),
+                        device)
+    log_ys = torch.log(train_ys[..., 1:])  # (tasks, n)
     data_losses = _fit_volt(volt, train_x, log_ys, vols, config.data_iters,
                             config.data_lr)
     clock.mark("data")
 
     # ---- stage 4: correlated vol forecast + per-task Markov rollouts -------
     with torch.no_grad():
-        h, s = test_x.shape[-1], config.nsample
+        h = test_x.shape[-1]
+        # every task's and every path's draws, alike on every rank
         log_vol_draws = mt_state.sample_forecast(
-            test_x, s, generator,
+            test_x, config.nsample, generator,
             None if noise is None else (noise["vol_z"], noise["vol_eps"]))
         pred_vol = torch.exp(log_vol_draws.movedim(-1, 0))  # (T, S, H)
-        zs = (torch.randn(num_tasks, s, h, dtype=dtype, device=device,
-                          generator=generator) if noise is None
-              else noise["zs"])
+        if mesh is not None:
+            pred_vol = mesh.shard(pred_vol, ("asset", "path"))
+        if noise is None:
+            zs = torch.randn(len(train_ys), nsample, h, dtype=dtype,
+                             device=device, generator=draw_generator)
+        else:
+            zs = (noise["zs"] if mesh is None
+                  else mesh.shard(noise["zs"], ("asset", "path")))
         use_theta = config.theta is not None
         latent = (torch.mean(torch.log(train_ys), dim=-1) if use_theta
-                  else torch.zeros(num_tasks, dtype=dtype, device=device))
+                  else torch.zeros(len(train_ys), dtype=dtype,
+                                   device=device))
         volt_state = VoltState(module=volt, train_x=train_x, train_y=log_ys,
                                log_vol_path=torch.log(vols))
         samples = _rollout_volt_scan(volt_state, latent, test_x, pred_vol,
                                      zs, use_theta,
                                      config.theta if use_theta else 0.0)
-        ok = (torch.all(torch.isfinite(samples).flatten(-2), dim=-1)
-              & torch.isfinite(data_losses[-1])
+        if config.output == "quantiles" and mesh is not None:
+            samples = mesh.gather(samples, (None, "path"))
+        bad = ~torch.all(torch.isfinite(samples).flatten(-2), dim=-1)
+        if config.output == "samples" and mesh is not None:
+            bad = mesh.all_reduce(bad.to(dtype), "path") > 0
+        ok = (~bad & torch.isfinite(data_losses[-1])
               & torch.isfinite(gpcv_losses[-1])
               & torch.isfinite(vol_losses[-1]))
         if config.output == "quantiles":
