@@ -29,11 +29,11 @@ Phases, each printed with its time; any failure exits non-zero:
    (505, 999) with k=25, cuDNN's conv1d beside it); S1 (Kalman MLL forward
    and adjoint, a chunked scan computed in float64 inside, at (64, 999),
    (1, 999), (3, 1), (5, 33), (500, 999), (505, 999) and (16, 16000), by
-   ``ops.tridiag.kalman_agreement``: value and final state rtol 1e-5 from
-   a float64 run of the plain loop, since on long rows the float32 loop's
-   own rounding passes that tolerance; gradients rtol 1e-4, atol 1e-6 of
-   the largest, from the float32 plain loop, since d/dv differences
-   neighbouring d/d(delta); the other distances are printed); K2 (dense
+   ``ops.tridiag.kalman_agreement``: every tensor from a float64 run of
+   the plain loop, value and final state at rtol 1e-5, gradients at rtol
+   1e-4, atol 1e-6 of the largest, since d/dv differences neighbouring
+   d/d(delta); the float32 loop's own distance from it printed beside,
+   and the largest share of the tolerance S1 used); K2 (dense
    Volt covariance: exact, it copies values of the integral; its gradient
    rtol 1e-5); K3 (GH-75 expected log-likelihood, the fused path: one
    forward keeping the gradient's node sums, an elementwise backward; at
@@ -90,7 +90,9 @@ Phases, each printed with its time; any failure exits non-zero:
    payoff grid's, rollout path-steps per second, the peak memory,
    ``calibration(percentiles)`` and the mean CRPS over 64 assets;
 11. ``fbm_path``: ``fit_forecast_batch(PipelineConfig(kernel="fbm"))`` on
-   phase 4's series with the defaults (quantiles), which resolve to the
+   phase 4's series with the defaults (quantiles) but 100 Adam steps a
+   stage (the defaults' 300 cut to make room for the evaluation phase),
+   which resolve to the
    dense GPCV family, the dense FBM vol MLL through the increment-domain
    factor and the dense vol sampler.  Checks: every ``ok``, a finite fan
    non-decreasing across levels, finite Hurst parameters (printed), the
@@ -109,18 +111,21 @@ Phases, each printed with its time; any failure exits non-zero:
    FFT).  Checks: finite paths, every ``ok``, the vol band, K1 and S1
    launched;
 14. ``baselines``: the baseline GPs, the LSTM and the paper's experiment
-   drivers at the published backtest settings, each item timed with its
-   launch counts and peak memory: ``generate_basic_predictions`` on the
-   ``AAA`` fixture (520 closes read from its CSV, 2 windows of ntrain=400,
-   600 Adam steps, 1000 paths of H=100) with a spectral mixture of 15 and
-   EWMA k=400 (the autoregressive ``nonvol_rollouts``) and with a scaled
-   Matérn and the log-linear mean (the joint posterior);
-   ``basic_wind_rollouts`` (RBF, EWMA k=200, 500 steps, 200 paths) and
-   ``wind_volt_window`` (constant mean, and EWMA k=400; 1000 paths, theta
-   0.01) on a ``wind_windows`` window; the LSTM at ``lstm_generator.py``'s
-   defaults on two ``AAA`` windows; ``run_multitask_wind`` on 4 synthetic
-   stations (H=126, k=400); ``forecast_generator.main`` over the fixtures
-   (``--kernel volt --ntimes 2 --save``).  The items run at PyTorch's
+   drivers at the published backtest widths, their steps cut (the
+   published depth in brackets) to make room for the evaluation phase,
+   each item timed with its launch counts and peak memory:
+   ``generate_basic_predictions`` on the ``AAA`` fixture (520 closes read
+   from its CSV, 2 windows of ntrain=400, 200 Adam steps (600), 1000 paths
+   of H=100) with a spectral mixture of 15 and EWMA k=400 (the
+   autoregressive ``nonvol_rollouts``) and with a scaled Matérn and the
+   log-linear mean (the joint posterior); ``basic_wind_rollouts`` (RBF,
+   EWMA k=200, 200 steps (500), 200 paths) and ``wind_volt_window``
+   (constant mean, and EWMA k=400; 1000 paths, theta 0.01) on a
+   ``wind_windows`` window; the LSTM at ``lstm_generator.py``'s widths,
+   50 epochs (200), on two ``AAA`` windows; ``run_multitask_wind`` on 4
+   synthetic stations (H=126, k=400, 100 GPCV and 100 vol steps (200,
+   400)); ``forecast_generator.main`` over the fixtures (``--kernel volt
+   --ntimes 2 --save --train_iters 100`` (300)).  The items run at PyTorch's
    default precision, as their CLIs do (cuDNN's LSTM may use TF32; every
    other phase and check runs with TF32 off).  Checks: shapes and finite
    samples, the files under the JAX package's names, K1 launched in the
@@ -129,15 +134,29 @@ Phases, each printed with its time; any failure exits non-zero:
    version, and the card's ``nonvol_rollouts`` against
    ``nonvol_rollouts_dense`` on the same normals (S=64, H=10, atol 5e-4
    per path);
-15. ``mesh``: the scale-out layer (``run_mesh``): the main path in a world
-   of one process over NCCL against the unsharded call; a world of two
-   processes on the card (gloo) with the main path on a (2, 1) mesh and
-   ``price_options_batch`` at 500 x 10k x 100 on a (1, 2) mesh, each
-   against the unsharded call; a checkpoint round trip; a profiler trace
-   that names K1's and S1's kernels; ``graft_entry.entry()``; the
-   ``live_serving`` and ``option_pricing`` examples at their defaults;
-   every K1 and S1 launch at a shape that phase 3 checks;
-16. agreement on a small input: the card's run equals the CPU run (the
+15. ``mesh``: the scale-out layer (``run_mesh``): the main path (100 Adam
+   steps a stage, from 300) in a world of one process over NCCL against
+   the unsharded call; a world of two processes on the card (gloo) with
+   the main path on a (2, 1) mesh and ``price_options_batch`` at 500 x 10k
+   x 100 on a (1, 2) mesh, each against the unsharded call; a checkpoint
+   round trip; a profiler trace that names K1's and S1's kernels;
+   ``graft_entry.entry()``; the ``live_serving`` and ``option_pricing``
+   examples at their defaults but ``--iters 100`` (300); every K1 and S1
+   launch at a shape that phase 3 checks;
+16. ``evaluation``: the forecast-quality tools of
+   ``volt_tpu_torch/tools`` at the evaluation's widths (ntrain 252 for
+   the price universes, 400 for the wind one, H=20, S=256 (1024 for
+   options), 300 Adam steps a stage, 400 for the basic GPs, an LSTM of
+   hidden 64 for 40 epochs) with the windows cut: ``eval_compare``'s volt
+   lane on GBM, SABR and WINDGUST at W=32, its Matérn, spectral-mixture
+   and LSTM lanes on GBM at W=4, ``eval_options`` on GBM (volt and
+   ``oracle-mc``) at W=16, ``eval_multitask`` at W=1, T=4.  Every metric
+   within its band of the JAX package's value with key 0
+   (``volt_tpu_torch/tools/jax_reference.json``: max(3 x the spread over
+   eight further keys, a floor)), every volt window ``ok``, K1 and S1
+   launched at shapes that phase 3 checks; each item's seconds and the
+   phase's peak memory printed;
+17. agreement on a small input: the card's run equals the CPU run (the
    plain versions, which the repository's tests hold against the JAX
    package): the main path within the pipeline parity tolerances; the
    dense family's Laplace init on ``S = R R^T`` (1e-3 of its largest
@@ -155,14 +174,14 @@ Phases, each printed with its time; any failure exits non-zero:
 Every phase prints its times with the card's name and power limit.  The
 vol band: recovered vol / true SABR vol, the median over series, inside
 (0.3, 3.5).  Launch counts are reset before each of phases 4-13 (and each
-item of phases 14 and 15) and read
+item of phases 14 to 16) and read
 after it; a kernel's ``launches`` is the count from the phase that drives
 its path, and ``launches_by_path`` its counts in the quantiles call of
 phase 4, in ``Volt().Train()`` alone (S1 must launch in both), in
 ``price_options_batch``, in ``fbm_path``, in the cold ``multitask`` fit,
 in ``long_main_path``, summed over the items of ``baselines``, and in
 ``mesh``'s sharded calls (the world of one, both ranks of the world of
-two).  The
+two) and summed over the items of ``evaluation``.  The
 second-to-last line is a JSON object with each kernel's launches, error, times, bound
 (``bound_ms``: the largest of its bytes over 3.35 TB/s, its operations
 over the H100's peak for their type and its special functions over the
@@ -180,7 +199,7 @@ Two trees of the port against each other on one card::
 runs the named phases (``PHASES``: ``kernel_times``, ``kalman_times``,
 ``main_path``, ``gpcv_full``, ``gpcv_cv``, ``gpcv_sparse``,
 ``option_pricing``, ``fbm_path``, ``multitask``, ``long_main_path``,
-``baselines``, ``mesh``; a phase named twice runs twice, the first cold) in
+``baselines``, ``mesh``, ``evaluation``; a phase named twice runs twice, the first cold) in
 four fresh processes, in the trees parent, this one, this one, parent,
 each with its own package and kernels and this file's phases and
 timers.  It prints one JSON line per process and writes the
@@ -323,15 +342,19 @@ EWMA_TIMED = [((64, 999), 300), ((64, 999), 100), ((64, 999), 25),
 # wind baseline at k=200, the multitask wind stations, the CLI's k=100)
 # and the mesh path's (a rank's 32 assets, the profiled B=8 call, the
 # checkpointed single series, entry()'s step, the live_serving and
-# option_pricing examples); ``run_baselines`` and ``run_mesh`` fail on a
-# launch of their paths at a shape not here
+# option_pricing examples) and the evaluation path's (eval_compare's
+# volt lane at W=32 with ntrain 252, k=50, and with ntrain 400, k=399;
+# the baselines' single windows; eval_options' W=16; eval_multitask's 4
+# stations and each alone); ``run_baselines``, ``run_mesh`` and
+# ``run_evaluation`` fail on a launch of their paths at a shape not here
 EWMA_CHECKED = [((64, 999), 20), ((64, 999), 100), ((64, 999), 300),
                 ((500, 999), 300), ((500, 999), 25), ((1, 5), 300),
                 ((2, 3, 37), 20), ((70000, 3), 2), ((16, 2100), 300),
                 ((1, 399), 400), ((1, 400), 200), ((4, 399), 400),
                 ((2, 399), 100), ((32, 999), 300), ((8, 999), 300),
                 ((1, 999), 300), ((1, 128), 25), ((8, 199), 49),
-                ((1, 251), 50)]
+                ((1, 251), 50), ((32, 251), 50), ((32, 399), 399),
+                ((16, 251), 50), ((4, 199), 50), ((1, 199), 50)]
 
 
 def check_ewma(torch):
@@ -411,10 +434,11 @@ def time_ewma(torch):
 # item 9's B=500, n=16000 (16 tiles of the kernel's carry; the
 # long_main_path phase), the multitask path's T=505, the baselines
 # path's (the wind Volt window, the CLI's two windows, the multitask wind
-# stations) and the mesh path's (as K1's)
+# stations), the mesh path's and the evaluation path's (as K1's)
 KALMAN_SHAPES = [(64, 999), (1, 999), (3, 1), (5, 33), (500, 999),
                  (505, 999), (16, 16000), (1, 399), (2, 399), (4, 399),
-                 (32, 999), (8, 999), (1, 128), (8, 199), (1, 251)]
+                 (32, 999), (8, 999), (1, 128), (8, 199), (1, 251),
+                 (32, 251), (32, 399), (16, 251), (4, 199), (1, 199)]
 KALMAN_TIMED = [(64, 999), (1, 999), (500, 999), (505, 999), (16, 16000)]
 
 
@@ -460,22 +484,26 @@ def check_kalman(torch, vt):
     from volt_tpu_torch.ops import tridiag as ttd
 
     fwd_err = bwd_err = 0.0
+    worst = (0.0, "")
     for b, n in KALMAN_SHAPES:
         ins = kalman_inputs(torch, vt, b, n)
         got, plain, f64 = (kalman_run(torch, ttd, ins, how)
                            for how in ("kernel", "plain", "float64"))
-        for i, (name, used, kernel_f64, plain_f64, err) in enumerate(
+        for i, (name, used, plain_f64, err) in enumerate(
                 ttd.kalman_agreement(got, plain, f64)):
-            print(f"   S1 ({b}, {n}) {name}: {used:.2f} of the tolerance; "
-                  f"from float64 the kernel {kernel_f64:.2f}, the float32 "
-                  f"plain loop {plain_f64:.2f} (same units); max abs err "
-                  f"against the float32 plain loop {err:.3e}")
+            print(f"   S1 ({b}, {n}) {name}: {used:.2f} of the tolerance "
+                  f"from the float64 plain loop (the float32 plain loop "
+                  f"{plain_f64:.2f}); max abs err against the float32 "
+                  f"plain loop {err:.3e}")
+            worst = max(worst, (used, f"({b}, {n}) {name}"))
             if not used <= 1.0:
                 fail(f"S1 ({b}, {n}) {name} disagrees with its plain version")
             if i < 3:
                 fwd_err = max(fwd_err, err)
             else:
                 bwd_err = max(bwd_err, err)
+    print(f"   S1 largest share of its tolerance: {worst[0]:.2f}, at "
+          f"{worst[1]}")
     return fwd_err, bwd_err
 
 
@@ -1097,11 +1125,12 @@ def _check_launched(what, launches, dev):
 
 
 def run_fbm_path(torch, vt, native, dev="cuda", b=64, n=999, h=100,
-                 iters=300, nsample=1000):
+                 iters=100, nsample=1000):
     """``fit_forecast_batch(PipelineConfig(kernel="fbm"))`` on the main
-    path's series with the defaults (quantiles): it resolves to the dense
-    GPCV family, the dense FBM vol MLL (the increment-domain factor) and
-    the dense vol sampler."""
+    path's series with the defaults (quantiles) but ``iters`` Adam steps a
+    stage (100: the defaults' 300 cut to make room for the evaluation
+    phase): it resolves to the dense GPCV family, the dense FBM vol MLL
+    (the increment-domain factor) and the dense vol sampler."""
     from volt_tpu_torch.parallel import PipelineConfig, fit_forecast_batch
     from volt_tpu_torch.parallel.pipeline import _resolve_config
 
@@ -1326,33 +1355,34 @@ def _default_precision(torch):
 
 
 def run_baselines(torch, vt, native, dev="cuda", ntrain=400, h=100,
-                  basic_iters=600, nsample=1000, wind_iters=500,
-                  wind_nsample=200, lstm_epochs=200, lstm_hidden=128,
-                  lstm_h=20, mt_h=126, fg_train_iters=300, dense_s=64,
-                  dense_h=10):
+                  basic_iters=200, nsample=1000, wind_iters=200,
+                  wind_nsample=200, lstm_epochs=50, lstm_hidden=128,
+                  lstm_h=20, mt_h=126, mt_gpcv_iters=100, mt_vol_iters=100,
+                  fg_train_iters=100, dense_s=64, dense_h=10):
     """The baselines and the paper's experiment drivers at the published
-    backtest settings, at PyTorch's default precision as their CLIs run
-    (each item's launch counts reset before it, each K1 and S1 launch's
-    shape checked to be one that ``check_ewma`` / ``check_kalman`` hold
-    against the plain version):
+    backtest widths, their Adam steps and epochs cut to make room for the
+    evaluation phase (the published depth in brackets), at PyTorch's
+    default precision as their CLIs run (each item's launch counts reset
+    before it, each K1 and S1 launch's shape checked to be one that
+    ``check_ewma`` / ``check_kalman`` hold against the plain version):
 
     1. ``generate_basic_predictions`` on the ``AAA`` fixture (520 closes,
        read from its CSV) with a spectral mixture of 15 and an EWMA k=400
-       mean: 600 Adam steps, 1000 autoregressive paths of 100 steps,
-       ntrain=400, 2 windows;
+       mean: 200 Adam steps (600), 1000 autoregressive paths of 100
+       steps, ntrain=400, 2 windows;
     2. the same with a scaled Matérn and the log-linear mean (the joint
        posterior in one shot);
-    3. ``basic_wind_rollouts`` (RBF, EWMA k=200, 500 steps, 200 paths) on
-       one ``wind_windows`` window of ntrain=400, H=100;
+    3. ``basic_wind_rollouts`` (RBF, EWMA k=200, 200 steps (500), 200
+       paths) on one ``wind_windows`` window of ntrain=400, H=100;
     4. ``wind_volt_window`` with the constant mean (S1) and EWMA k=400
        (K1), 1000 paths, theta=0.01;
-    5. the LSTM at ``lstm_generator.py``'s defaults (window 25, hidden
-       128, one layer, 200 epochs, batch 128) on two windows of ``AAA``,
-       1000 paths of 20 steps;
+    5. the LSTM at ``lstm_generator.py``'s widths (window 25, hidden 128,
+       one layer, batch 128) for 50 epochs (200) on two windows of
+       ``AAA``, 1000 paths of 20 steps;
     6. ``run_multitask_wind`` on the 4 synthetic stations, ntrain=400,
-       H=126, 1000 paths, k=400;
+       H=126, 1000 paths, k=400, 100 GPCV and 100 vol steps (200, 400);
     7. ``forecast_generator.main`` over the fixtures with ``--kernel volt
-       --ntimes 2 --save``;
+       --ntimes 2 --save --train_iters 100`` (300);
 
     then the card's ``nonvol_rollouts`` against ``nonvol_rollouts_dense``
     on the same normals (item 1's first window, S=64, H=10, atol 5e-4 per
@@ -1479,7 +1509,9 @@ def run_baselines(torch, vt, native, dev="cuda", ntrain=400, h=100,
         res, secs, counts = _timed(torch, dev, native, lambda: (
             run_multitask_wind(names, data, ntrain=ntrain,
                                forecast_horizon=mt_h, nsample=nsample,
-                               k=400, generator=g, device=dev)))
+                               gpcv_iters=mt_gpcv_iters,
+                               vol_iters=mt_vol_iters, k=400, generator=g,
+                               device=dev)))
         record("multitask_wind", secs, counts,
                {"peak_gib": _peak_gib(torch, dev)})
         xp = torch.as_tensor(res["x_paths"])
@@ -1790,14 +1822,17 @@ def _mesh_rank(rank, dev, sizes):
 
 
 def run_mesh(torch, vt, native, dev="cuda", b=64, n=999, h=100,
-             nsample=1000, iters=300, price_b=500, price_s=10000,
-             profile_b=8, profile_iters=10, examples=((), ()),
+             nsample=1000, iters=100, price_b=500, price_s=10000,
+             profile_b=8, profile_iters=10,
+             examples=(("--iters", "100"), ("--iters", "100")),
              timeout=600.0):
     """The scale-out layer on one card:
 
     1. a world of one process over NCCL (``multihost_initialize`` at a
        localhost address, ``make_mesh()``): ``fit_forecast_batch(mesh=)`` at
-       B=64, n=999, the defaults, quantiles, on given normals, against the
+       B=64, n=999, the defaults but ``iters`` Adam steps a stage (100:
+       the defaults' 300 cut to make room for the evaluation phase; the
+       pricing calls too), quantiles, on given normals, against the
        unsharded call on the same normals (1e-6 of max|fan|);
     2. a world of 2 processes on the card (gloo: NCCL refuses two ranks on
        one card), spawned after the kernels were built here: each rank
@@ -1818,8 +1853,9 @@ def run_mesh(torch, vt, native, dev="cuda", b=64, n=999, h=100,
        n=999 (10 steps a stage): the Chrome trace must name K1's and S1's
        kernels;
     5. ``graft_entry.entry()``'s step on the card, K1 and S1 launched;
-    6. the ``live_serving`` and ``option_pricing`` examples at their
-       defaults on the card; the warm refit's seconds per tick printed.
+    6. the ``live_serving`` and ``option_pricing`` examples on the card
+       with ``examples``' flags (their defaults but ``--iters 100``, from
+       300); the warm refit's seconds per tick printed.
 
     Every K1 and S1 launch of the phase, in this process and in the
     ranks, must be at a shape that the kernels phase holds against the
@@ -2058,6 +2094,112 @@ def run_mesh(torch, vt, native, dev="cuda", b=64, n=999, h=100,
                 fail(f"mesh: {sym} was not launched by the sharded path")
     result["launches"] = mesh_launches
     return mesh_launches, result
+
+
+def _flat_rows(tool, out):
+    """A tool's ``main`` result as ``{(universe, lane): {metric: value}}``,
+    the layout of ``jax_reference.json``'s items."""
+    if tool == "eval_compare":
+        return {(u, lane): m for u, rows in out.items()
+                for lane, m in rows.items()}
+    if tool == "eval_options":
+        return {("GBM", lane): m for lane, m in out.items()}
+    return {("CORRVOL", lane): {f"{part}.{k}": v
+                                for part in ("marginal", "gust_energy")
+                                for k, v in out[lane][part].items()}
+            for lane in ("independent", "multitask")}
+
+
+def run_evaluation(torch, vt, native, dev="cuda"):
+    """The evaluation tools (``volt_tpu_torch/tools``) on the card at the
+    evaluation's widths (ntrain 252 for the price universes and 400 for
+    the wind one, H=20, S=256 (1024 for options), 300 Adam steps a stage,
+    400 for the basic GPs, an LSTM of hidden 64 for 40 epochs), with the
+    number of windows cut to fit the time:
+
+    (a) ``eval_compare``'s volt lane on GBM and SABR, then WINDGUST, W=32;
+    (b) its Matérn, spectral-mixture and LSTM lanes on GBM, W=4;
+    (c) ``eval_options`` on GBM, the volt lane and ``oracle-mc``, W=16;
+    (d) ``eval_multitask``, W=1, T=4 stations (at the tool's 8 the item
+        alone took 53.5 s: its independent lane's per-station fits run 600
+        host-bound vol-GP steps each), both lanes.
+
+    Each item runs the tool's ``main`` with the flags that
+    ``volt_tpu_torch/tools/jax_reference.json`` records, at PyTorch's
+    default precision as the CLIs run.  Every metric must lie within its
+    band of the JAX package's key-0 value (``max(3 x spread over keys,
+    floor)``, written there before the phase's first run on the card);
+    the ones marked not gated are printed.  Every volt window must be
+    ``ok`` (the volt lane raises otherwise), K1 and S1 must be launched,
+    and every K1 and S1 launch must be at a shape that the kernels phase
+    checks."""
+    import importlib
+    import io
+
+    ref = json.loads((Path(vt.__file__).parent / "tools"
+                      / "jax_reference.json").read_text())
+    groups = {}
+    for it in ref["items"]:
+        groups.setdefault((it["tool"], tuple(it["argv"])), []).append(it)
+    seen, items, launches, rows, outside = set(), {}, {}, [], []
+    _reset_peak(torch, dev)
+    t_phase = time.perf_counter()
+    with _launch_shapes(native, seen), _default_precision(torch):
+        for (tool, argv), its in groups.items():
+            mod = importlib.import_module(f"volt_tpu_torch.tools.{tool}")
+            name = f"{tool} {' '.join(argv)}"
+            try:
+                with contextlib.redirect_stdout(io.StringIO()):
+                    out, secs, counts = _timed(torch, dev, native, lambda: (
+                        mod.main(["--device", dev, *argv])))
+            except AssertionError as exc:
+                fail(f"evaluation: {name}: {exc}")
+            items[name] = {"s": secs, "launches": counts}
+            for sym, c in counts.items():
+                launches[sym] = launches.get(sym, 0) + c
+            print(f"   {name}: {secs:.3f} s; launches {counts} ({CARD})",
+                  flush=True)
+            got_rows = _flat_rows(tool, out)
+            for it in its:
+                got = got_rows[(it["universe"], it["lane"])]
+                for metric, m in it["metrics"].items():
+                    val = float(got[metric])
+                    diff = abs(val - m["key0"])
+                    rows.append({"tool": tool, "universe": it["universe"],
+                                 "lane": it["lane"], "metric": metric,
+                                 "card": val, "jax_key0": m["key0"],
+                                 "diff": diff, "band": m.get("band"),
+                                 "gated": m["gated"]})
+                    within = m["gated"] and diff <= m["band"]
+                    print(f"   {tool} {it['universe']} {it['lane']} "
+                          f"{metric}: card {val:.6g}, JAX key 0 "
+                          f"{m['key0']:.6g}, |diff| {diff:.4g} "
+                          + (f"(band {m['band']:.4g}"
+                             f"{'' if within else ', OUTSIDE'})"
+                             if m["gated"] else f"(not gated: {m['why']})"))
+                    if not math.isfinite(val):
+                        outside.append(f"{it['lane']} {metric} not finite")
+                    elif m["gated"] and not within:
+                        outside.append(f"{tool} {it['universe']} "
+                                       f"{it['lane']} {metric}: {val} "
+                                       f"against {m['key0']} +- {m['band']}")
+    secs = time.perf_counter() - t_phase
+    peak = _peak_gib(torch, dev)
+    print(f"   evaluation: {secs:.3f} s, peak {peak:.2f} GiB allocated "
+          f"({CARD})")
+    unchecked = sorted(seen - _checked_shapes())
+    print(f"   K1 and S1 launch shapes in the phase: {sorted(seen)}")
+    if dev == "cuda":
+        if unchecked:
+            fail(f"evaluation: K1 or S1 launched at shapes that the kernels "
+                 f"phase does not hold against their plain versions: "
+                 f"{unchecked}")
+        _check_launched("evaluation", launches, dev)
+    if outside:
+        fail("evaluation: metrics outside their band of the JAX package's: "
+             + "; ".join(outside))
+    return launches, {"items": items, "metrics": rows, "s": secs,
+                      "peak_gib": peak, "launch_shapes": sorted(seen)}
 
 
 def check_small_agreement(torch, vt):
@@ -2377,6 +2519,11 @@ def smoke():
     mesh_launches, mesh = run_mesh(torch, vt, native)
     done(t0)
 
+    t0 = phase("evaluation: the forecast-quality tools at the evaluation's "
+               "widths, held to the JAX package's metrics")
+    eval_launches, evaluation = run_evaluation(torch, vt, native)
+    done(t0)
+
     for k in kernels:
         path, counts = paths[k["name"]]
         k["path"] = path
@@ -2390,7 +2537,8 @@ def smoke():
             "multitask": mt_launches.get(sym, 0),
             "long_main_path": long_launches.get(sym, 0),
             "baselines": base_launches.get(sym, 0),
-            "mesh": mesh_launches.get(sym, 0)}
+            "mesh": mesh_launches.get(sym, 0),
+            "evaluation": eval_launches.get(sym, 0)}
         if k["launches"] < 1:
             fail(f"kernel {k['name']} was not launched by its path ({path})")
 
@@ -2404,7 +2552,8 @@ def smoke():
                       "gpcv_sparse": gpcv_sparse,
                       "option_pricing": pricing, "fbm_path": fbm,
                       "multitask": multitask, "long_main_path": long_main,
-                      "baselines": baselines, "mesh": mesh}))
+                      "baselines": baselines, "mesh": mesh,
+                      "evaluation": evaluation}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2434,6 +2583,8 @@ PHASES = {
     "baselines": lambda torch, vt, native: run_baselines(torch, vt,
                                                          native)[1],
     "mesh": lambda torch, vt, native: run_mesh(torch, vt, native)[1],
+    "evaluation": lambda torch, vt, native: run_evaluation(torch, vt,
+                                                           native)[1],
 }
 PHASES_TAG = "chip_smoke phases: "
 

@@ -93,9 +93,9 @@ def test_ewma_kernel_gradient_is_the_plain_transpose(cuda):
                                    (500, 999), (16, 16000)])
 @pytest.mark.parametrize("shared_v", [False, True])
 def test_kalman_kernel_matches_plain(cuda, shared_v, shape):
-    """S1 against the plain loop by ``ttd.kalman_agreement``: outputs rtol
-    1e-5 from a float64 run of it, gradients rtol 1e-4 and atol 1e-6 of
-    the largest from the float32 run."""
+    """S1 against the plain loop by ``ttd.kalman_agreement``: a float64
+    run of it, outputs at rtol 1e-5, gradients at rtol 1e-4 and atol 1e-6
+    of the largest."""
     b, n = shape
     vol = 0.2 + 0.05 * torch.rand(1 if shared_v else b, n, device="cuda",
                                   generator=cuda)

@@ -170,8 +170,8 @@ def _plain_runs():
     return runs
 
 
-# (tensor moved, relative move, passes): outputs are held at rtol 1e-5 to
-# the float64 loop, gradients at rtol 1e-4 to the float32 loop
+# (tensor moved, relative move, passes): every tensor is held to the
+# float64 loop, outputs at rtol 1e-5, gradients at rtol 1e-4
 AGREEMENT_CASES = {"float32 loop": (None, 0.0, True),
                    "float64 loop": ("f64", 0.0, True),
                    "ll/n in": (0, 5e-6, True), "ll/n out": (0, 3e-5, False),
@@ -180,27 +180,45 @@ AGREEMENT_CASES = {"float32 loop": (None, 0.0, True),
                    "d/dsigma2 out": (4, 3e-4, False),
                    "d/dresid out": (5, 3e-4, False),
                    # the float32 loop's own gradient moved outside its
-                   # tolerance from float64: the float64 loop is the
-                   # reference, which the float64 run passes and the
-                   # moved float32 loop fails
+                   # tolerance from float64: the float64 run passes and
+                   # the moved float32 loop fails
                    "d/dsigma2 reference out, float64 in": (
                        ("plain", 4), 3e-4, True),
                    "d/dsigma2 reference out, reference in": (
-                       ("both", 4), 3e-4, False)}
+                       ("both", 4), 3e-4, False),
+                   # the float32 loop and S1 each moved from the float64
+                   # run: S1 passes inside its tolerance from float64,
+                   # wherever the float32 loop lies, and fails past it,
+                   # however near the float32 loop
+                   "d/dsigma2 either side, kernel nearer": (
+                       ("split", 4), (8e-5, -7.8e-5), True),
+                   "d/dsigma2 either side, kernel out": (
+                       ("split", 4), (8e-5, -1.2e-4), False),
+                   "d/dsigma2 same side, kernel farther": (
+                       ("split", 4), (8e-5, 9e-5), True),
+                   "d/dsigma2 either side, kernel farther": (
+                       ("split", 4), (-7.8e-5, 9e-5), True),
+                   "d/dsigma2 same side, kernel out near the float32 loop": (
+                       ("split", 4), (9e-5, 1.1e-4), False)}
 
 
 @pytest.mark.parametrize("case", list(AGREEMENT_CASES))
 def test_kalman_agreement_rule(case):
     """The card checks' rule passes the plain loop itself and its float64
-    run, and fails an output or a gradient moved past its tolerance; where
-    the float32 loop's gradient is itself out of its tolerance from
-    float64, the gradient is held to the float64 loop."""
+    run, and fails an output or a gradient moved past its tolerance from
+    the float64 loop, wherever the float32 loop lies."""
     which, rel, passes = AGREEMENT_CASES[case]
     plain, f64 = _plain_runs()
     got = [t.float() for t in f64] if which in ("f64", ("plain", 4)) else \
         [t.clone() for t in plain]
     if isinstance(which, int):
         got[which] = got[which] * (1.0 + rel)
+    elif isinstance(which, tuple) and which[0] == "split":
+        # both moved from the float64 run
+        plain = [t.clone() for t in plain]
+        ref = f64[which[1]].float()
+        plain[which[1]] = ref * (1.0 + rel[0])
+        got[which[1]] = ref * (1.0 + rel[1])
     elif isinstance(which, tuple):
         plain = [t.clone() for t in plain]
         plain[which[1]] = plain[which[1]] * (1.0 + rel)

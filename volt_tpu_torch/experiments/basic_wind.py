@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from ..convert import load_jax_params
 from ..kernels import (MaternKernel, RBFKernel, ScaleKernel,
                        SpectralMixtureKernel)
 from ..means import (ConstantMean, DEWMAMean, EWMAMean, LinearMean,
@@ -47,11 +48,14 @@ def _make_mean(mean_name: str, k: int):
 
 def make_basic_model(train_x, log_y, kernel_name: str, mean_name: str = "ewma",
                      k: int = 20, train_iters: int = 600,
-                     num_mixtures: int = 20, generator=None):
+                     num_mixtures: int = 20, generator=None,
+                     init_params=None):
     """Build and fit the baseline exact GP on the log levels ``log_y``
     (reference ``BasicWind.py:26-69``): Adam(0.1) on its MLL.
     ``generator`` draws the random init (the spectral mixture's and its
-    data-driven re-init, a linear mean's weights)."""
+    data-driven re-init, a linear mean's weights); ``init_params`` (the
+    JAX package's initial tree, e.g. through :mod:`volt_tpu_torch.convert`)
+    replaces that init."""
     kname = kernel_name.lower()
     if kname == "sm":
         kernel = SpectralMixtureKernel(num_mixtures=num_mixtures)
@@ -60,10 +64,13 @@ def make_basic_model(train_x, log_y, kernel_name: str, mean_name: str = "ewma",
     module = BasicGP(kernel, _make_mean(mean_name, k))
     generator = default_generator(generator, log_y.device)
     module.init(log_y.dtype, log_y.device, generator)
-    if kname == "sm":
-        kernel.initialize_from_data(train_x, log_y, generator)
-    if mean_name.lower() == "loglinear":
-        module.mean.initialize_from_data(train_x, log_y)
+    if init_params is not None:
+        load_jax_params(module, init_params, log_y.device)
+    else:
+        if kname == "sm":
+            kernel.initialize_from_data(train_x, log_y, generator)
+        if mean_name.lower() == "loglinear":
+            module.mean.initialize_from_data(train_x, log_y)
     _fit_basic(module, train_x, log_y, train_iters, 0.1)
     return module.fit_state(train_x, log_y)
 
