@@ -24,11 +24,12 @@ Phases, each printed with its time; any failure exits non-zero:
    per run):
    K1 (EWMA filter, a recurrence run in float64: max abs error <= 1e-6
    max|y| from a float64 run of the plain conv1d and <= 1e-5 max|y| from
-   the float32 run, at nine shapes and k; timed at (64, 999) with k=300,
-   100 and 25, at (500, 999) with k=300 and at the multitask path's
-   (505, 999) with k=25, cuDNN's conv1d beside it); S1 (Kalman MLL forward
-   and adjoint, a chunked scan computed in float64 inside, at (64, 999),
-   (1, 999), (3, 1), (5, 33), (500, 999), (505, 999) and (16, 16000), by
+   the float32 run, at the shapes and k of ``EWMA_CHECKED``; timed at
+   (64, 999) with k=300, 100 and 25, at (500, 999) with k=300 and at the
+   multitask path's (505, 999) with k=25, cuDNN's conv1d beside it); S1
+   (Kalman MLL forward and adjoint, a chunked scan computed in float64
+   inside, at the shapes of ``KALMAN_SHAPES``, up to (16, 16000) and
+   (1, 25000), by
    ``ops.tridiag.kalman_agreement``: every tensor from a float64 run of
    the plain loop, value and final state at rtol 1e-5, gradients at rtol
    1e-4, atol 1e-6 of the largest, since d/dv differences neighbouring
@@ -170,18 +171,31 @@ Phases, each printed with its time; any failure exits non-zero:
    ``nonvol_rollouts`` (atol 1e-4 of max|y|), the LSTM forward (1e-5 with
    TF32 off; 1e-2 at PyTorch's default, where cuDNN may use TF32) and
    two LSTM training epochs (losses rtol 1e-4, TF32 off).
+18. ``timing``: the timing tools of ``volt_tpu_torch/tools`` through
+   their ``main`` at their published widths, the depth cut
+   (``TIMING_ITEMS``): ``ablate_stages`` (64 x 1000, 5 Adam steps a stage),
+   ``bench_refit`` (64 x 1000, 20 steps, the warm refit 2),
+   ``bench_refit_multitask`` (T=505, n=999, 10 and 2), ``bench_multitask``
+   (T=1 and 64 at n=999, 5 steps), ``bench_scaling`` (one asset at n=400
+   and 25000, 5 steps), ``scaling_study`` (B=16 at ntrain 400 and 8000, 5
+   steps), ``bench_fbm`` (8 x 1000, 5 steps) and ``bench_voltcov`` (K2
+   against its twin at (64, 999)), each tool's lines printed with the card.
+   Checks: every ``ok`` and finite number the tools return, K2
+   bit-identical to its twin, ``bench_refit``'s ``vol_rel_err_mean`` under
+   1.0 (the JAX tool's bound in ``tests/test_tools.py``), K1, S1 and K2
+   launched, every K1 and S1 launch at a shape that phase 3 checks.
 
 Every phase prints its times with the card's name and power limit.  The
 vol band: recovered vol / true SABR vol, the median over series, inside
 (0.3, 3.5).  Launch counts are reset before each of phases 4-13 (and each
-item of phases 14 to 16) and read
+item of phases 14 to 16 and 18) and read
 after it; a kernel's ``launches`` is the count from the phase that drives
 its path, and ``launches_by_path`` its counts in the quantiles call of
 phase 4, in ``Volt().Train()`` alone (S1 must launch in both), in
 ``price_options_batch``, in ``fbm_path``, in the cold ``multitask`` fit,
 in ``long_main_path``, summed over the items of ``baselines``, and in
 ``mesh``'s sharded calls (the world of one, both ranks of the world of
-two) and summed over the items of ``evaluation``.  The
+two) and summed over the items of ``evaluation`` and of ``timing``.  The
 second-to-last line is a JSON object with each kernel's launches, error, times, bound
 (``bound_ms``: the largest of its bytes over 3.35 TB/s, its operations
 over the H100's peak for their type and its special functions over the
@@ -199,7 +213,8 @@ Two trees of the port against each other on one card::
 runs the named phases (``PHASES``: ``kernel_times``, ``kalman_times``,
 ``main_path``, ``gpcv_full``, ``gpcv_cv``, ``gpcv_sparse``,
 ``option_pricing``, ``fbm_path``, ``multitask``, ``long_main_path``,
-``baselines``, ``mesh``, ``evaluation``; a phase named twice runs twice, the first cold) in
+``baselines``, ``mesh``, ``evaluation``, ``timing``; a phase named
+twice runs twice, the first cold) in
 four fresh processes, in the trees parent, this one, this one, parent,
 each with its own package and kernels and this file's phases and
 timers.  It prints one JSON line per process and writes the
@@ -213,6 +228,7 @@ import copy
 import inspect
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -345,8 +361,12 @@ EWMA_TIMED = [((64, 999), 300), ((64, 999), 100), ((64, 999), 25),
 # option_pricing examples) and the evaluation path's (eval_compare's
 # volt lane at W=32 with ntrain 252, k=50, and with ntrain 400, k=399;
 # the baselines' single windows; eval_options' W=16; eval_multitask's 4
-# stations and each alone); ``run_baselines``, ``run_mesh`` and
-# ``run_evaluation`` fail on a launch of their paths at a shape not here
+# stations and each alone) and the timing path's (bench_refit_multitask's
+# T=505 at k=25, bench_scaling's one asset at n=400 and 25000,
+# scaling_study's B=16 at ntrain 400 and 8000, bench_fbm's 8 x 1000, all
+# at k=100 but the first); ``run_baselines``, ``run_mesh``,
+# ``run_evaluation`` and ``run_timing`` fail on a launch of their paths
+# at a shape not here
 EWMA_CHECKED = [((64, 999), 20), ((64, 999), 100), ((64, 999), 300),
                 ((500, 999), 300), ((500, 999), 25), ((1, 5), 300),
                 ((2, 3, 37), 20), ((70000, 3), 2), ((16, 2100), 300),
@@ -354,7 +374,9 @@ EWMA_CHECKED = [((64, 999), 20), ((64, 999), 100), ((64, 999), 300),
                 ((2, 399), 100), ((32, 999), 300), ((8, 999), 300),
                 ((1, 999), 300), ((1, 128), 25), ((8, 199), 49),
                 ((1, 251), 50), ((32, 251), 50), ((32, 399), 399),
-                ((16, 251), 50), ((4, 199), 50), ((1, 199), 50)]
+                ((16, 251), 50), ((4, 199), 50), ((1, 199), 50),
+                ((505, 999), 25), ((1, 400), 100), ((1, 25000), 100),
+                ((16, 399), 100), ((16, 7999), 100), ((8, 999), 100)]
 
 
 def check_ewma(torch):
@@ -434,11 +456,13 @@ def time_ewma(torch):
 # item 9's B=500, n=16000 (16 tiles of the kernel's carry; the
 # long_main_path phase), the multitask path's T=505, the baselines
 # path's (the wind Volt window, the CLI's two windows, the multitask wind
-# stations), the mesh path's and the evaluation path's (as K1's)
+# stations), the mesh path's, the evaluation path's and the timing
+# path's (as K1's)
 KALMAN_SHAPES = [(64, 999), (1, 999), (3, 1), (5, 33), (500, 999),
                  (505, 999), (16, 16000), (1, 399), (2, 399), (4, 399),
                  (32, 999), (8, 999), (1, 128), (8, 199), (1, 251),
-                 (32, 251), (32, 399), (16, 251), (4, 199), (1, 199)]
+                 (32, 251), (32, 399), (16, 251), (4, 199), (1, 199),
+                 (1, 400), (1, 25000), (16, 399), (16, 7999)]
 KALMAN_TIMED = [(64, 999), (1, 999), (500, 999), (505, 999), (16, 16000)]
 
 
@@ -2202,6 +2226,140 @@ def run_evaluation(torch, vt, native, dev="cuda"):
                       "peak_gib": peak, "launch_shapes": sorted(seen)}
 
 
+# The timing phase's items: (tool, its flags, the environment it reads).
+# Every tool runs at its published width; only iterations, repeats and
+# the list of sizes are cut from the tools' defaults (in brackets), to
+# keep the phase within 25 s of a smoke that runs near its 300 s (the
+# phase took 7.1 s on an H100)
+TIMING_ITEMS = [
+    ("ablate_stages", ["64", "1000"],
+     {"ABLATE_ITERS": "5", "ABLATE_NSAMPLE": "1000",  # (300)
+      "BENCH_OUTPUT": "samples"}),
+    ("bench_refit", ["--assets", "64", "--ntrain", "1000", "--iters", "20",
+                     "--warm-iters", "2", "--reps", "1"], {}),  # (300, 30, 3)
+    ("bench_refit_multitask", ["--tasks", "505", "--ntrain", "1000",
+                               "--iters", "10", "--warm-iters", "2",
+                               "--reps", "1"], {}),  # (300, 30, 3)
+    ("bench_multitask", ["--tasks", "1", "64", "--n", "1000", "--iters",
+                         "5", "--repeats", "1"], {}),  # (64..505; 50, 3)
+    ("bench_scaling", ["--sizes", "400,25000", "--iters", "5", "--reps",
+                       "1"], {}),  # (400..25000; 300, 3)
+    ("scaling_study", [], {"SCALE_ASSETS": "16", "SCALE_NTRAIN": "400,8000",
+                           "SCALE_ITERS": "5", "SCALE_NSAMPLE": "1000",
+                           "BENCH_OUTPUT": "samples"}),  # (400..8000; 300)
+    ("bench_fbm", ["--ntrain", "1000", "--assets", "8", "--iters", "5",
+                   "--repeats", "1"], {}),  # (400, 1000, 2000; 300, 2)
+    ("bench_voltcov", ["--batch", "64", "--n", "999", "--reps", "30"], {}),
+]
+# The bound that tests/test_tools.py::test_bench_refit holds the JAX
+# tool's vol_rel_err_mean to
+REFIT_VOL_ERR_BOUND = 1.0
+
+
+@contextlib.contextmanager
+def _environ(values):
+    """``os.environ`` with ``values`` set while open."""
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _finite_numbers(out):
+    """Every number in a tool's result (nested dicts and lists)."""
+    stack, nums = [out], []
+    while stack:
+        item = stack.pop()
+        if isinstance(item, dict):
+            stack.extend(item.values())
+        elif isinstance(item, (list, tuple)):
+            stack.extend(item)
+        elif isinstance(item, (int, float)) and not isinstance(item, bool):
+            nums.append(float(item))
+    return all(math.isfinite(v) for v in nums)
+
+
+def run_timing(torch, vt, native, dev="cuda", items=None):
+    """The timing tools (``volt_tpu_torch/tools``) on the card, each
+    through its ``main`` at its published width with the depth cut
+    (``TIMING_ITEMS``): the stage split, the warm refits, the Kronecker
+    chain at T=1 and 64, the n-scaling of one asset (n=400 and 25000) and
+    of B=16 (ntrain 400 and 8000), the FBM pipeline at 8 x 1000 and K2
+    against its twin at (64, 999).  Each tool's lines are printed with
+    the card; checks: every ``ok`` and finite number the tools print,
+    K2 bit-identical to its twin, ``bench_refit``'s ``vol_rel_err_mean``
+    under ``REFIT_VOL_ERR_BOUND``, K1, S1 and K2 launched, and every K1
+    and S1 launch at a shape that the kernels phase checks."""
+    import importlib
+    import io
+
+    seen, results, launches = set(), {}, {}
+    _reset_peak(torch, dev)
+    t_phase = time.perf_counter()
+    with _launch_shapes(native, seen):
+        for tool, argv, env in items or TIMING_ITEMS:
+            mod = importlib.import_module(f"volt_tpu_torch.tools.{tool}")
+            buf = io.StringIO()
+            try:
+                with _environ(env), contextlib.redirect_stdout(buf):
+                    out, secs, counts = _timed(torch, dev, native, lambda: (
+                        mod.main(["--device", dev, *argv])))
+            except (AssertionError, SystemExit) as exc:
+                fail(f"timing: {tool}: {exc}\n{buf.getvalue()}")
+            for line in buf.getvalue().strip().splitlines():
+                print(f"   {tool}: {line} ({CARD})")
+            print(f"   {tool}: {secs:.3f} s; launches {counts} ({CARD})",
+                  flush=True)
+            results[tool] = {"s": secs, "launches": counts, "out": out}
+            for sym, c in counts.items():
+                launches[sym] = launches.get(sym, 0) + c
+            if not _finite_numbers(out):
+                fail(f"timing: {tool} printed a non-finite number")
+    secs = time.perf_counter() - t_phase
+    peak = _peak_gib(torch, dev)
+    print(f"   timing: {secs:.3f} s, peak {peak:.2f} GiB allocated ({CARD})")
+
+    refit = results.get("bench_refit", {}).get("out")
+    if refit is not None:
+        err = refit["vol_rel_err_mean"]
+        print(f"   bench_refit vol_rel_err_mean {err} (bound "
+              f"{REFIT_VOL_ERR_BOUND})")
+        if not (refit["ok"] and err < REFIT_VOL_ERR_BOUND):
+            fail(f"timing: bench_refit ok {refit['ok']}, vol_rel_err_mean "
+                 f"{err}")
+    mt = results.get("bench_refit_multitask", {}).get("out")
+    if mt is not None and not mt["ok"]:
+        fail("timing: bench_refit_multitask's warm refit failed a task")
+    for rec in results.get("bench_fbm", {}).get("out", []):
+        if not (rec["finite"] and rec["ok_frac"] == 1.0):
+            fail(f"timing: bench_fbm at ntrain {rec['ntrain']}: finite "
+                 f"{rec['finite']}, ok_frac {rec['ok_frac']}")
+    vc = results.get("bench_voltcov", {}).get("out")
+    if vc is not None and not vc["bit_identical"]:
+        fail("timing: K2 differs from its plain twin")
+    print(f"   K1 and S1 launch shapes in the phase: {sorted(seen)}")
+    if dev == "cuda":
+        unchecked = sorted(seen - _checked_shapes())
+        if unchecked:
+            fail(f"timing: K1 or S1 launched at shapes that the kernels "
+                 f"phase does not hold against their plain versions: "
+                 f"{unchecked}")
+        _check_launched("timing", launches, dev)
+        if launches.get("volt_covariance", 0) < 1:
+            fail("timing: K2 (volt_covariance) was not launched")
+    return launches, {"items": {k: {"s": v["s"], "launches": v["launches"]}
+                                for k, v in results.items()},
+                      "outputs": {k: v["out"] for k, v in results.items()},
+                      "s": secs, "peak_gib": peak,
+                      "launch_shapes": sorted(seen)}
+
+
 def check_small_agreement(torch, vt):
     """Card against CPU on the parity tests' small input and noise: the
     main path, the dense GPCV family (its Laplace init, compared on
@@ -2524,6 +2682,15 @@ def smoke():
     eval_launches, evaluation = run_evaluation(torch, vt, native)
     done(t0)
 
+    t0 = phase("small input: card against CPU")
+    check_small_agreement(torch, vt)
+    done(t0)
+
+    t0 = phase("timing: the timing tools at their published widths, depth "
+               "cut")
+    timing_launches, timing = run_timing(torch, vt, native)
+    done(t0)
+
     for k in kernels:
         path, counts = paths[k["name"]]
         k["path"] = path
@@ -2538,13 +2705,10 @@ def smoke():
             "long_main_path": long_launches.get(sym, 0),
             "baselines": base_launches.get(sym, 0),
             "mesh": mesh_launches.get(sym, 0),
-            "evaluation": eval_launches.get(sym, 0)}
+            "evaluation": eval_launches.get(sym, 0),
+            "timing": timing_launches.get(sym, 0)}
         if k["launches"] < 1:
             fail(f"kernel {k['name']} was not launched by its path ({path})")
-
-    t0 = phase("small input: card against CPU")
-    check_small_agreement(torch, vt)
-    done(t0)
 
     print(json.dumps({"card": card, "main_path": main_path,
                       "reference_api": api, "gpcv_gh": gh,
@@ -2553,7 +2717,7 @@ def smoke():
                       "option_pricing": pricing, "fbm_path": fbm,
                       "multitask": multitask, "long_main_path": long_main,
                       "baselines": baselines, "mesh": mesh,
-                      "evaluation": evaluation}))
+                      "evaluation": evaluation, "timing": timing}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2585,6 +2749,7 @@ PHASES = {
     "mesh": lambda torch, vt, native: run_mesh(torch, vt, native)[1],
     "evaluation": lambda torch, vt, native: run_evaluation(torch, vt,
                                                            native)[1],
+    "timing": lambda torch, vt, native: run_timing(torch, vt, native)[1],
 }
 PHASES_TAG = "chip_smoke phases: "
 

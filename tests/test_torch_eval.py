@@ -32,7 +32,9 @@ from torch_parity import close, j32, jax_pipeline_noise, jax_tree_np, t32
 from volt_tpu.experiments import basic_wind as jbw
 from volt_tpu.models import lstm as jl
 
-from volt_tpu_torch.data import corrvol_windows, gbm_windows, sabr_windows
+from volt_tpu_torch.data import (corrvol_windows, gbm_windows,
+                                  gusty_wind_windows, sabr_windows,
+                                  wind_windows)
 from volt_tpu_torch.tools import eval_compare as tec
 from volt_tpu_torch.tools import eval_multitask as tem
 from volt_tpu_torch.tools import eval_options as teo
@@ -103,37 +105,64 @@ def _jax_basic_draws(prices, kernel_name, ntrain=NTRAIN, h=H, s=S, k=K):
     return inits, zs
 
 
-@pytest.mark.parametrize("kernel_name", ["matern", "sm"])
-def test_basic_lane_on_jax_draws(gbm, kernel_name):
-    want = jec.basic_lane(gbm, NTRAIN, H, ITERS, S, K, kernel_name)
-    inits, zs = _jax_basic_draws(gbm, kernel_name)
-    got = tec.basic_lane(gbm, NTRAIN, H, ITERS, S, K, kernel_name,
+def _wind_universe(kind, w, ntrain):
+    """``eval_compare``'s WIND or WINDGUST windows (its shared
+    ``default_rng(7)`` draws GBM, then WIND, then WINDGUST)."""
+    rng = np.random.default_rng(7)
+    gbm_windows(rng, w, ntrain, H)
+    wind = wind_windows(rng, w, ntrain, H)
+    return wind if kind == "WIND" else gusty_wind_windows(rng, w, ntrain, H)
+
+
+@pytest.mark.parametrize("universe,kernel_name,k", [
+    ("GBM", "matern", K), ("GBM", "sm", K),
+    # the wind lanes' EWMA of k = ntrain - 1 (eval_compare's wind settings)
+    ("WIND", "sm", NTRAIN - 1)])
+def test_basic_lane_on_jax_draws(gbm, universe, kernel_name, k):
+    prices = gbm if universe == "GBM" else _wind_universe(universe, 1,
+                                                          NTRAIN)
+    want = jec.basic_lane(prices, NTRAIN, H, ITERS, S, k, kernel_name)
+    inits, zs = _jax_basic_draws(prices, kernel_name, k=k)
+    got = tec.basic_lane(prices, NTRAIN, H, ITERS, S, k, kernel_name,
                          device="cpu", init_params=inits, zs=zs)
-    assert got.shape == (W, S, H)
-    close(got, want, 0.0, 1e-4 * float(np.abs(np.log(gbm)).max()))
+    assert got.shape == (prices.shape[0], S, H)
+    close(got, want, 0.0, 1e-4 * float(np.abs(np.log(prices)).max()))
 
 
-def test_lstm_lane_on_jax_draws(gbm):
-    """JAX's ``lstm_lane`` draws: per window ``(key, k_fit, k_s)``; in
-    ``_train`` ``(k_init, key)`` and one permutation key per epoch; the
-    forecast one normal key per step."""
-    epochs, seq_len = 2, 20
-    prices = gbm[:1]
-    want = jec.lstm_lane(prices, NTRAIN, H, epochs, S)
-    log_y = np.log(prices[0, :NTRAIN].astype(np.float32))
-    _, k_fit, k_s = jax.random.split(jax.random.key(0), 3)
-    k_init, k_perm = jax.random.split(k_fit)
-    windows, _ = jl.make_windows(j32(log_y), seq_len)
-    init = jl._Net(64, 1).init(k_init, windows[:2])["params"]
-    n = log_y.shape[-1] - 1
-    perms = torch.as_tensor(np.stack([
-        np.asarray(jax.random.permutation(k, n))
-        for k in jax.random.split(k_perm, epochs)]))
-    zs = t32(np.stack([np.asarray(jax.random.normal(k, (S,)))
-                       for k in jax.random.split(k_s, H)])).T
-    got = tec.lstm_lane(prices, NTRAIN, H, epochs, S, device="cpu",
-                        init_params=[jax_tree_np(init)], perms=[perms],
-                        zs=[zs])
+def _jax_lstm_draws(prices, ntrain, h, epochs, s, seq_len=20):
+    """JAX's ``lstm_lane`` draws: per window ``(key, k_fit, k_s)`` from
+    ``key(0)``; in ``_train`` ``(k_init, key)``, the flax tree from
+    ``k_init`` and one permutation key per epoch; the forecast one normal
+    key per step.  Returns the trees, the ``(epochs, N)`` permutations and
+    the ``(s, h)`` normals, per window."""
+    key, inits, perms, zs = jax.random.key(0), [], [], []
+    for widx in range(prices.shape[0]):
+        log_y = np.log(prices[widx, :ntrain].astype(np.float32))
+        key, k_fit, k_s = jax.random.split(key, 3)
+        k_init, k_perm = jax.random.split(k_fit)
+        windows, _ = jl.make_windows(j32(log_y), seq_len)
+        inits.append(jax_tree_np(
+            jl._Net(64, 1).init(k_init, windows[:2])["params"]))
+        perms.append(torch.as_tensor(np.stack([
+            np.asarray(jax.random.permutation(k, windows.shape[0]))
+            for k in jax.random.split(k_perm, epochs)])))
+        zs.append(t32(np.stack([np.asarray(jax.random.normal(k, (s,)))
+                                for k in jax.random.split(k_s, h)])).T)
+    return inits, perms, zs
+
+
+# ntrain 200: 199 windows, two batches of 128, the second padded
+@pytest.mark.parametrize("universe,ntrain", [("GBM", NTRAIN),
+                                             ("WINDGUST", NTRAIN),
+                                             ("WINDGUST", 200)])
+def test_lstm_lane_on_jax_draws(gbm, universe, ntrain):
+    epochs = 2
+    prices = gbm[:1] if universe == "GBM" else _wind_universe(universe, 1,
+                                                              ntrain)
+    want = jec.lstm_lane(prices, ntrain, H, epochs, S)
+    inits, perms, zs = _jax_lstm_draws(prices, ntrain, H, epochs, S)
+    got = tec.lstm_lane(prices, ntrain, H, epochs, S, device="cpu",
+                        init_params=inits, perms=perms, zs=zs)
     assert got.shape == (1, S, H)
     close(got, want, 1e-4)
 

@@ -1,6 +1,6 @@
-"""The evaluation tools: the forecast-quality harnesses that make every
-table of ``EVALUATION.md``, on the port (one module per script of the JAX
-package's ``tools/``): ``python -m volt_tpu_torch.tools.<name>`` with the
+"""The tools: the forecast-quality harnesses that make every table of
+``EVALUATION.md`` and the timing harnesses, on the port (one module per
+script of the JAX package's ``tools/``): ``python -m volt_tpu_torch.tools.<name>`` with the
 JAX script's flags and ``--device`` (default ``cuda``; ``--device cpu``
 off the card).  Each module's ``main(argv)`` takes the command line as a
 list and returns what it printed.
@@ -12,4 +12,11 @@ baselines), ``eval_options`` (option values against an oracle),
 ``gpcv_convergence``.  ``jax_reference.json`` holds the JAX package's
 metrics at the settings ``chip_smoke.py``'s ``evaluation`` phase runs,
 with the band each must lie in (made by ``tests/torch_eval_reference.py``).
+
+The timing tools, each printing its first call beside its warm best:
+``ablate_stages`` (the stage split), ``bench_refit`` and
+``bench_refit_multitask`` (the warm refit of live serving),
+``bench_multitask`` (the Kronecker chain per T), ``bench_scaling`` and
+``scaling_study`` (the n-scaling), ``bench_fbm`` (the FBM path's cost per
+n) and ``bench_voltcov`` (kernel K2 against its plain twin).
 """

@@ -1,5 +1,6 @@
-"""What the evaluation tools share: the ``--device`` argument, the
-forecast grids, seeded generators and the move of results to numpy."""
+"""What the tools share: the ``--device`` argument, the forecast grids,
+seeded generators, the move of results to numpy, and for the timing tools
+the name of the device and the check of their outputs."""
 
 from __future__ import annotations
 
@@ -48,3 +49,17 @@ def numpy(a) -> np.ndarray:
 def per_window(items, widx):
     """Window ``widx``'s entry of an optional per-window list."""
     return None if items is None else items[widx]
+
+
+def backend(device) -> str:
+    """The name of the card under ``device``, or ``"cpu"`` (the JAX
+    tools' ``backend`` key)."""
+    device = torch.device(device)
+    return (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else device.type)
+
+
+def check_finite(a, what: str):
+    """Raise ``AssertionError`` unless every value of ``a`` is finite."""
+    if not np.isfinite(numpy(a)).all():
+        raise AssertionError(f"{what}: non-finite values")

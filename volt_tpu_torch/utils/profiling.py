@@ -2,8 +2,8 @@
 
 ``annotate`` names a region on the profiler's timeline (and on the card
 in NVTX), ``trace`` records the CPU and CUDA activity of a block into a
-Chrome trace, and ``timed`` / ``timed_best`` take wall times whose end
-waits for the card: PyTorch returns before the device finishes, so each
+Chrome trace, and ``timed`` / ``timed_best`` / ``timed_cold_best`` take
+wall times whose end waits for the card: PyTorch returns before the device finishes, so each
 timed call ends in ``torch.cuda.synchronize`` of its result's devices.
 """
 
@@ -15,7 +15,7 @@ import time
 
 import torch
 
-__all__ = ["annotate", "trace", "timed", "timed_best"]
+__all__ = ["annotate", "trace", "timed", "timed_best", "timed_cold_best"]
 
 
 @contextlib.contextmanager
@@ -60,16 +60,26 @@ def _synchronize(result):
     return result
 
 
-def timed_best(fn, repeats: int = 3):
-    """``(result, best_seconds)``: one warm call, then the least time of
-    ``repeats`` calls (same return order as :func:`timed`)."""
+def timed_cold_best(fn, repeats: int = 3):
+    """``(result, best_seconds, cold_seconds)``: the first call, timed
+    (``cold_seconds``: on a fresh process it pays the first use of each
+    library, handle and allocation), then the least time of ``repeats``
+    calls."""
+    t0 = time.perf_counter()
     result = _synchronize(fn())
+    cold = time.perf_counter() - t0
     best = float("inf")
     for _ in range(max(repeats, 1)):
         t0 = time.perf_counter()
         result = _synchronize(fn())
         best = min(best, time.perf_counter() - t0)
-    return result, best
+    return result, best, cold
+
+
+def timed_best(fn, repeats: int = 3):
+    """``(result, best_seconds)``: one warm call, then the least time of
+    ``repeats`` calls (same return order as :func:`timed`)."""
+    return timed_cold_best(fn, repeats)[:2]
 
 
 def timed(fn, *args, warmup: int = 1, repeats: int = 1, **kwargs):
