@@ -31,8 +31,10 @@ Phases, each printed with its time; any failure exits non-zero:
    inside, at the shapes of ``KALMAN_SHAPES``, up to (16, 16000) and
    (1, 25000), by
    ``ops.tridiag.kalman_agreement``: every tensor from a float64 run of
-   the plain loop, value and final state at rtol 1e-5, gradients at rtol
-   1e-4, atol 1e-6 of the largest, since d/dv differences neighbouring
+   the plain loop (the plain loops run on the CPU, in worker processes
+   started before K1's check, on the card's inputs), value and final
+   state at rtol 1e-5, gradients at rtol 1e-4, atol 1e-6 of the largest,
+   since d/dv differences neighbouring
    d/d(delta); the float32 loop's own distance from it printed beside,
    and the largest share of the tolerance S1 used); K2 (dense
    Volt covariance: exact, it copies values of the integral; its gradient
@@ -500,19 +502,69 @@ def kalman_run(torch, ttd, ins, how):
     return [o.detach() for o in out] + [t.grad for t in ins]
 
 
-def check_kalman(torch, vt):
-    """S1 forward and adjoint against the plain loop on the card, on the
-    main path's stage-3 inputs at KALMAN_SHAPES, by the rule of
+def _kalman_reference(ins, how):
+    """``kalman_run`` on the CPU of numpy inputs, for a worker process:
+    the six tensors as numpy arrays, and the seconds the run took."""
+    import torch
+
+    from volt_tpu_torch.ops import tridiag as ttd
+
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    out = kalman_run(torch, ttd, [torch.from_numpy(a) for a in ins], how)
+    return [o.numpy() for o in out], time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def kalman_references(torch, vt):
+    """S1's plain references, the float64 and the float32 loop, at
+    KALMAN_SHAPES on the main path's stage-3 inputs, started on the CPU in
+    worker processes.  The plain loop is one small op after another, so a
+    long row costs its host time on the card as well; on the CPU the
+    shapes run side by side while the card goes on with other checks.
+    Yields ``{(b, n): (inputs on the card, {how: future})}``; every
+    worker is stopped on exit."""
+    import concurrent.futures
+    import multiprocessing
+
+    workers = max(1, min(len(KALMAN_SHAPES), (os.cpu_count() or 2) - 2))
+    pool = concurrent.futures.ProcessPoolExecutor(
+        workers, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        refs = {}
+        for b, n in sorted(KALMAN_SHAPES, key=lambda s: -s[1]):
+            ins = kalman_inputs(torch, vt, b, n)
+            host = [t.cpu().numpy() for t in ins]
+            refs[b, n] = (ins, {how: pool.submit(_kalman_reference, host, how)
+                                for how in ("float64", "plain")})
+        yield refs
+    finally:
+        pool.shutdown(cancel_futures=True)
+
+
+def check_kalman(torch, refs):
+    """S1 forward and adjoint on the card against the plain loop on the
+    CPU (``kalman_references``) at KALMAN_SHAPES, by the rule of
     ``ops.tridiag.kalman_agreement``.  Returns the max abs errors against
     the float32 plain loop, forward and backward."""
     from volt_tpu_torch.ops import tridiag as ttd
 
     fwd_err = bwd_err = 0.0
     worst = (0.0, "")
+    t_check = time.perf_counter()
     for b, n in KALMAN_SHAPES:
-        ins = kalman_inputs(torch, vt, b, n)
-        got, plain, f64 = (kalman_run(torch, ttd, ins, how)
-                           for how in ("kernel", "plain", "float64"))
+        ins, futures = refs[b, n]
+        t0 = time.perf_counter()
+        got = kalman_run(torch, ttd, ins, "kernel")
+        torch.cuda.synchronize()
+        kernel_s = time.perf_counter() - t0
+        (f64, f64_s), (plain, plain_s) = (futures[how].result()
+                                          for how in ("float64", "plain"))
+        f64, plain = ([torch.from_numpy(a).to(got[0].device) for a in out]
+                      for out in (f64, plain))
+        print(f"   S1 ({b}, {n}): kernel {kernel_s:.3f} s on the card; "
+              f"plain loop {f64_s:.3f} s (float64), {plain_s:.3f} s "
+              f"(float32) on the CPU")
         for i, (name, used, plain_f64, err) in enumerate(
                 ttd.kalman_agreement(got, plain, f64)):
             print(f"   S1 ({b}, {n}) {name}: {used:.2f} of the tolerance "
@@ -527,7 +579,8 @@ def check_kalman(torch, vt):
             else:
                 bwd_err = max(bwd_err, err)
     print(f"   S1 largest share of its tolerance: {worst[0]:.2f}, at "
-          f"{worst[1]}")
+          f"{worst[1]}; the check waited {time.perf_counter() - t_check:.3f}"
+          f" s")
     return fwd_err, bwd_err
 
 
@@ -2256,21 +2309,6 @@ TIMING_ITEMS = [
 REFIT_VOL_ERR_BOUND = 1.0
 
 
-@contextlib.contextmanager
-def _environ(values):
-    """``os.environ`` with ``values`` set while open."""
-    saved = {k: os.environ.get(k) for k in values}
-    os.environ.update(values)
-    try:
-        yield
-    finally:
-        for k, v in saved.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
-
-
 def _finite_numbers(out):
     """Every number in a tool's result (nested dicts and lists)."""
     stack, nums = [out], []
@@ -2285,7 +2323,7 @@ def _finite_numbers(out):
     return all(math.isfinite(v) for v in nums)
 
 
-def run_timing(torch, vt, native, dev="cuda", items=None):
+def run_timing(torch, vt, native, dev="cuda"):
     """The timing tools (``volt_tpu_torch/tools``) on the card, each
     through its ``main`` at its published width with the depth cut
     (``TIMING_ITEMS``): the stage split, the warm refits, the Kronecker
@@ -2298,16 +2336,18 @@ def run_timing(torch, vt, native, dev="cuda", items=None):
     and S1 launch at a shape that the kernels phase checks."""
     import importlib
     import io
+    from unittest import mock
 
     seen, results, launches = set(), {}, {}
     _reset_peak(torch, dev)
     t_phase = time.perf_counter()
     with _launch_shapes(native, seen):
-        for tool, argv, env in items or TIMING_ITEMS:
+        for tool, argv, env in TIMING_ITEMS:
             mod = importlib.import_module(f"volt_tpu_torch.tools.{tool}")
             buf = io.StringIO()
             try:
-                with _environ(env), contextlib.redirect_stdout(buf):
+                with mock.patch.dict(os.environ, env), \
+                        contextlib.redirect_stdout(buf):
                     out, secs, counts = _timed(torch, dev, native, lambda: (
                         mod.main(["--device", dev, *argv])))
             except (AssertionError, SystemExit) as exc:
@@ -2325,23 +2365,19 @@ def run_timing(torch, vt, native, dev="cuda", items=None):
     peak = _peak_gib(torch, dev)
     print(f"   timing: {secs:.3f} s, peak {peak:.2f} GiB allocated ({CARD})")
 
-    refit = results.get("bench_refit", {}).get("out")
-    if refit is not None:
-        err = refit["vol_rel_err_mean"]
-        print(f"   bench_refit vol_rel_err_mean {err} (bound "
-              f"{REFIT_VOL_ERR_BOUND})")
-        if not (refit["ok"] and err < REFIT_VOL_ERR_BOUND):
-            fail(f"timing: bench_refit ok {refit['ok']}, vol_rel_err_mean "
-                 f"{err}")
-    mt = results.get("bench_refit_multitask", {}).get("out")
-    if mt is not None and not mt["ok"]:
+    refit = results["bench_refit"]["out"]
+    err = refit["vol_rel_err_mean"]
+    print(f"   bench_refit vol_rel_err_mean {err} (bound "
+          f"{REFIT_VOL_ERR_BOUND})")
+    if not (refit["ok"] and err < REFIT_VOL_ERR_BOUND):
+        fail(f"timing: bench_refit ok {refit['ok']}, vol_rel_err_mean {err}")
+    if not results["bench_refit_multitask"]["out"]["ok"]:
         fail("timing: bench_refit_multitask's warm refit failed a task")
-    for rec in results.get("bench_fbm", {}).get("out", []):
+    for rec in results["bench_fbm"]["out"]:
         if not (rec["finite"] and rec["ok_frac"] == 1.0):
             fail(f"timing: bench_fbm at ntrain {rec['ntrain']}: finite "
                  f"{rec['finite']}, ok_frac {rec['ok_frac']}")
-    vc = results.get("bench_voltcov", {}).get("out")
-    if vc is not None and not vc["bit_identical"]:
+    if not results["bench_voltcov"]["out"]["bit_identical"]:
         fail("timing: K2 differs from its plain twin")
     print(f"   K1 and S1 launch shapes in the phase: {sorted(seen)}")
     if dev == "cuda":
@@ -2604,8 +2640,9 @@ def smoke():
     torch, vt, native, card = setup()
 
     t0 = phase("kernels against their plain versions")
-    k1 = check_ewma(torch)
-    fwd_err, bwd_err = check_kalman(torch, vt)
+    with kalman_references(torch, vt) as refs:
+        k1 = check_ewma(torch)
+        fwd_err, bwd_err = check_kalman(torch, refs)
     s1 = time_kalman(torch, vt)
     s1[0]["max_abs_err"], s1[1]["max_abs_err"] = fwd_err, bwd_err
     kernels = [k1, *s1, check_volt_cov(torch), *check_gh_ell(torch)]
