@@ -58,10 +58,24 @@ Phases, each printed with its time; any failure exits non-zero:
    ``Volt(mean="ewma", k=300).Train()`` with its defaults (400 NGVI, 1000
    vol, 400 data iterations) and ``Forecast(nsample=1000)``: shape and
    finite values; the dense MLL (K2) against the Kalman MLL (S1) of the
-   same state, rel 1e-4; ``rollouts_dense`` (K2 every step) against the
-   Markov rollout on the same vol paths and normals, S=64, H=10, atol 5e-4
-   per path; K1, S1 and K2 launched;
-6. GPCV with the GH-75 term (K3) on 64 SABR series of 999 returns:
+   same state, rel 1e-4, and the fixed-covariance MLL (K2, then ``eigh``)
+   against the dense one, rel 1e-3; ``rollouts_dense`` (K2 every step)
+   against the Markov rollout on the same vol paths and normals, S=64,
+   H=10, atol 5e-4 per path; K1, S1 and K2 launched;
+6. ``fixed_cov``: the 64 states that phase 4 fitted (its vol paths and
+   data-model parameters on its series): ``VoltGP.make_cov_cache`` (K2,
+   ``(64, 999, 999)`` float32, 255.7 MB, then a batched float32 ``eigh``,
+   MAGMA's on the card) and ``mll_fixed_cov`` with its gradient in the
+   data model's parameters, held to the Kalman MLL of the same states (S1
+   forward and adjoint): values rel 1e-3, gradients rtol 5.4e-2 with atol
+   1e-5 of the largest (``FIXED_COV_*_RTOL``: the JAX package's 1e-3, or
+   for the gradient three times the JAX package's own float32 distance
+   from float64 on these states, which misses 1e-3: its float32 ``eigh``
+   sets the error); S1 also against the same form with its ``eigh`` in
+   float64, rel 1e-5 (gradients with atol 1e-7 of the largest); each
+   lane's share of each tolerance printed, with the times of K2,
+   ``make_cov_cache`` and each MLL with its gradient; K2 and S1 launched;
+7. GPCV with the GH-75 term (K3) on 64 SABR series of 999 returns:
    ``learn_gpcv(ell_method="quadrature")`` by 300 Adam steps and by 30
    NGVI iterations, each predicted scale against the closed-form fit of
    the same input (the two ELL forms differ below float32 resolution, but
@@ -71,19 +85,19 @@ Phases, each printed with its time; any failure exits non-zero:
    in: at x = 0 the BM prior's variance is zero, and d/dvar of the GH term
    there is below float32 resolution, which NGVI's curvature step takes
    as it is); K3 forward and backward launched;
-7. ``gpcv_full``: ``fit_forecast_batch`` with ``gpcv_q="full"`` (the dense
+8. ``gpcv_full``: ``fit_forecast_batch`` with ``gpcv_q="full"`` (the dense
    variational root, ``(64, 999, 999)``) on phase 4's series, quantiles,
    the other defaults.  Checks: every ``ok``, a finite fan non-decreasing
    across levels, the vol band; prints the stage seconds and the median
    relative difference of its vol from phase 4's tridiagonal fit;
-8. ``gpcv_cv``: ``learn_gpcv(param="cv")`` on the same series, 30 NGVI
+9. ``gpcv_cv``: ``learn_gpcv(param="cv")`` on the same series, 30 NGVI
    iterations, then 300 Adam steps.  Checks: every series finite, the vol
    band; prints the difference from the exp fit of each;
-9. ``gpcv_sparse``: ``learn_gpcv_sparse`` on one SABR series of n=16000
+10. ``gpcv_sparse``: ``learn_gpcv_sparse`` on one SABR series of n=16000
    with 256 inducing points and its default 1000 Adam steps.  Checks: a
    finite scale, the vol band, the returned model's
    ``predicted_scale()`` equal to the returned scale (rtol 1e-6);
-10. ``option_pricing``: ``price_options_batch`` at the BASELINE
+11. ``option_pricing``: ``price_options_batch`` at the BASELINE
    configuration: 500 SABR series, n=999, 10000 paths of H=100 steps
    (``output="samples"``), 21 strikes from 0.8x to 1.2x the median last
    price, expiries at steps (4, 20, 62, 99), the realised prices from each
@@ -92,7 +106,7 @@ Phases, each printed with its time; any failure exits non-zero:
    every ``ok``; K1 and S1 launched.  Prints the stage seconds, the
    payoff grid's, rollout path-steps per second, the peak memory,
    ``calibration(percentiles)`` and the mean CRPS over 64 assets;
-11. ``fbm_path``: ``fit_forecast_batch(PipelineConfig(kernel="fbm"))`` on
+12. ``fbm_path``: ``fit_forecast_batch(PipelineConfig(kernel="fbm"))`` on
    phase 4's series with the defaults (quantiles) but 100 Adam steps a
    stage (the defaults' 300 cut to make room for the evaluation phase),
    which resolve to the
@@ -101,7 +115,7 @@ Phases, each printed with its time; any failure exits non-zero:
    non-decreasing across levels, finite Hurst parameters (printed), the
    vol band, K1 and S1 launched; prints the stage seconds and the peak
    memory;
-12. ``multitask``: ``fit_forecast_multitask`` at
+13. ``multitask``: ``fit_forecast_multitask`` at
    ``tools/bench_refit_multitask.py``'s defaults (505 SABR series, 999
    returns, H=100, 100 paths, 300 steps a stage, quantiles), cold, then a
    warm refit from ``warm_start_multitask(aux, shift=1)`` with 30 steps a
@@ -109,11 +123,11 @@ Phases, each printed with its time; any failure exits non-zero:
    the fan, K1 and S1 launched; the warm vol paths within a median 0.1
    (relative) of the cold fit's on the shared ticks; prints the stage
    seconds and the peak memory;
-13. ``long_main_path``: ``fit_forecast_batch`` with the defaults at B=16,
+14. ``long_main_path``: ``fit_forecast_batch`` with the defaults at B=16,
    n=16000 on the simulation's own step (the vol stage's projection is the
    FFT).  Checks: finite paths, every ``ok``, the vol band, K1 and S1
    launched;
-14. ``baselines``: the baseline GPs, the LSTM and the paper's experiment
+15. ``baselines``: the baseline GPs, the LSTM and the paper's experiment
    drivers at the published backtest widths, their steps cut (the
    published depth in brackets) to make room for the evaluation phase,
    each item timed with its launch counts and peak memory:
@@ -137,7 +151,7 @@ Phases, each printed with its time; any failure exits non-zero:
    version, and the card's ``nonvol_rollouts`` against
    ``nonvol_rollouts_dense`` on the same normals (S=64, H=10, atol 5e-4
    per path);
-15. ``mesh``: the scale-out layer (``run_mesh``): the main path (100 Adam
+16. ``mesh``: the scale-out layer (``run_mesh``): the main path (100 Adam
    steps a stage, from 300) in a world of one process over NCCL against
    the unsharded call; a world of two processes on the card (gloo) with
    the main path on a (2, 1) mesh and ``price_options_batch`` at 500 x 10k
@@ -146,7 +160,7 @@ Phases, each printed with its time; any failure exits non-zero:
    ``graft_entry.entry()``; the ``live_serving`` and ``option_pricing``
    examples at their defaults but ``--iters 100`` (300); every K1 and S1
    launch at a shape that phase 3 checks;
-16. ``evaluation``: the forecast-quality tools of
+17. ``evaluation``: the forecast-quality tools of
    ``volt_tpu_torch/tools`` at the evaluation's widths (ntrain 252 for
    the price universes, 400 for the wind one, H=20, S=256 (1024 for
    options), 300 Adam steps a stage, 400 for the basic GPs, an LSTM of
@@ -159,7 +173,7 @@ Phases, each printed with its time; any failure exits non-zero:
    eight further keys, a floor)), every volt window ``ok``, K1 and S1
    launched at shapes that phase 3 checks; each item's seconds and the
    phase's peak memory printed;
-17. agreement on a small input: the card's run equals the CPU run (the
+18. agreement on a small input: the card's run equals the CPU run (the
    plain versions, which the repository's tests hold against the JAX
    package): the main path within the pipeline parity tolerances; the
    dense family's Laplace init on ``S = R R^T`` (1e-3 of its largest
@@ -173,27 +187,31 @@ Phases, each printed with its time; any failure exits non-zero:
    ``nonvol_rollouts`` (atol 1e-4 of max|y|), the LSTM forward (1e-5 with
    TF32 off; 1e-2 at PyTorch's default, where cuDNN may use TF32) and
    two LSTM training epochs (losses rtol 1e-4, TF32 off).
-18. ``timing``: the timing tools of ``volt_tpu_torch/tools`` through
+19. ``timing``: the timing tools of ``volt_tpu_torch/tools`` through
    their ``main`` at their published widths, the depth cut
    (``TIMING_ITEMS``): ``ablate_stages`` (64 x 1000, 5 Adam steps a stage),
    ``bench_refit`` (64 x 1000, 20 steps, the warm refit 2),
    ``bench_refit_multitask`` (T=505, n=999, 10 and 2), ``bench_multitask``
    (T=1 and 64 at n=999, 5 steps), ``bench_scaling`` (one asset at n=400
    and 25000, 5 steps), ``scaling_study`` (B=16 at ntrain 400 and 8000, 5
-   steps), ``bench_fbm`` (8 x 1000, 5 steps) and ``bench_voltcov`` (K2
-   against its twin at (64, 999)), each tool's lines printed with the card.
+   steps), ``bench_fbm`` (8 x 1000, 5 steps), ``bench_voltcov`` (K2
+   against its twin at (64, 999)) and ``bench_compile`` (64 x 1000, 5
+   steps, one repeat, in a fresh child process on a copy of the package
+   without its build), each tool's lines printed with the card.
    Checks: every ``ok`` and finite number the tools return, K2
    bit-identical to its twin, ``bench_refit``'s ``vol_rel_err_mean`` under
-   1.0 (the JAX tool's bound in ``tests/test_tools.py``), K1, S1 and K2
+   1.0 (the JAX tool's bound in ``tests/test_tools.py``), ``bench_compile``'s
+   child ran and built the kernels (``build_s`` > 0), K1, S1 and K2
    launched, every K1 and S1 launch at a shape that phase 3 checks.
 
 Every phase prints its times with the card's name and power limit.  The
 vol band: recovered vol / true SABR vol, the median over series, inside
-(0.3, 3.5).  Launch counts are reset before each of phases 4-13 (and each
-item of phases 14 to 16 and 18) and read
+(0.3, 3.5).  Launch counts are reset before each of phases 4-14 (and each
+item of phases 15 to 17 and 19) and read
 after it; a kernel's ``launches`` is the count from the phase that drives
 its path, and ``launches_by_path`` its counts in the quantiles call of
 phase 4, in ``Volt().Train()`` alone (S1 must launch in both), in
+``fixed_cov``, in
 ``price_options_batch``, in ``fbm_path``, in the cold ``multitask`` fit,
 in ``long_main_path``, summed over the items of ``baselines``, and in
 ``mesh``'s sharded calls (the world of one, both ranks of the world of
@@ -213,7 +231,8 @@ Two trees of the port against each other on one card::
         --phase main_path --phase main_path
 
 runs the named phases (``PHASES``: ``kernel_times``, ``kalman_times``,
-``main_path``, ``gpcv_full``, ``gpcv_cv``, ``gpcv_sparse``,
+``main_path``, ``fixed_cov`` (which runs the main path first when this
+process has not), ``gpcv_full``, ``gpcv_cv``, ``gpcv_sparse``,
 ``option_pricing``, ``fbm_path``, ``multitask``, ``long_main_path``,
 ``baselines``, ``mesh``, ``evaluation``, ``timing``; a phase named
 twice runs twice, the first cold) in
@@ -899,6 +918,7 @@ def run_main_path(torch, vt, native):
         fail("fan decreases across quantile levels")
     check_vol_band(aux["vol"], v_true, "main path")
     SHARED["tridiag_vol"] = aux["vol"]
+    SHARED["main_fit"] = (x, ys, aux, cfg)
 
     cfg_s = PipelineConfig(output="samples")
     t1 = time.perf_counter()
@@ -946,6 +966,10 @@ def run_reference_api(torch, vt, native, dev="cuda", n=999, h=100,
 
     with torch.no_grad():
         dense, kalman = state.mll().item(), state.mll_kalman().item()
+        cache = state.module.make_cov_cache(state.train_x,
+                                            torch.exp(state.log_vol_path))
+        fixed = state.module.mll_fixed_cov(cache, state.train_x,
+                                           state.train_y).item()
         # the same dense MLL in float64 on the host, for the record
         vol64 = torch.exp(state.log_vol_path).double().cpu()
         y64 = state.train_y.double().cpu()
@@ -960,11 +984,15 @@ def run_reference_api(torch, vt, native, dev="cuda", n=999, h=100,
                             noise64).item()
     t3 = time.perf_counter()
     rel = abs(dense - kalman) / abs(kalman)
+    rel_fixed = abs(fixed - dense) / abs(dense)
     print(f"   MLL/n: dense {dense:.7f} (K2), Kalman {kalman:.7f} (S1), "
-          f"float64 host {dense64:.7f}; rel diff {rel:.2e} (tol 1e-4); "
-          f"{t3 - t2:.3f} s")
+          f"fixed-covariance {fixed:.7f} (K2, eigh), float64 host "
+          f"{dense64:.7f}; rel diff dense-Kalman {rel:.2e} (tol 1e-4), "
+          f"fixed-dense {rel_fixed:.2e} (tol 1e-3); {t3 - t2:.3f} s")
     if not rel <= 1e-4:
         fail("the dense MLL disagrees with the Kalman MLL of the same state")
+    if not rel_fixed <= 1e-3:
+        fail("the fixed-covariance MLL disagrees with the dense MLL")
 
     with torch.no_grad():
         tx = test_x[:dense_h]
@@ -987,7 +1015,181 @@ def run_reference_api(torch, vt, native, dev="cuda", n=999, h=100,
     return launches, {"train_launches": train_launches,
                       "train_s": t1 - t0, "forecast_s": t2 - t1,
                       "mll_dense": dense, "mll_kalman": kalman,
-                      "mll_dense_f64": dense64, "rollout_dense_err": err}
+                      "mll_fixed_cov": fixed, "mll_dense_f64": dense64,
+                      "rollout_dense_err": err}
+
+
+# The fixed-covariance MLL's tolerances.  Its float32 eigh of the Volt
+# covariance puts errors of about eps x lambda_max into the smallest
+# eigenvalues, beside the fitted noise at its 1e-4 floor, so the JAX
+# package's own float32 form, on the main path's 64 states, lies up to
+# 6.99e-4 (values, within its tests' 1e-3) and 1.80e-2 (the raw-noise
+# gradient, 18 x its tests' 1e-3) from a float64 reference, LAPACK's eigh
+# on the CPU (``tests/torch_fixed_cov_states.py jax`` on states fitted on
+# an H100).  Values are held at 1e-3; gradients at max(1e-3, 3 x JAX's
+# own float32 distance).
+JAX_F32_GRAD_REL = 1.80e-2
+FIXED_COV_VALUE_RTOL = 1e-3
+FIXED_COV_GRAD_RTOL = max(1e-3, 3 * JAX_F32_GRAD_REL)
+# S1 (forward and adjoint) against the same form with its eigh in float64,
+# which lies within 2e-7 of the float64 MLL on those states (the same
+# script's ``routes``, NVIDIA H100 80GB HBM3, 700.00 W): rel 1e-5, the
+# gradients with atol 1e-7 of the largest.
+KALMAN_F64_RTOL = 1e-5
+
+
+def _shares(got, want, rtol, atol):
+    """Each lane's (leading index's) largest ``|got - want| / (atol +
+    rtol |want|)``: its share of the tolerance."""
+    share = (got - want).abs() / (atol + rtol * want.abs())
+    return share.reshape(share.shape[0], -1).amax(dim=-1)
+
+
+def _fmt_shares(shares):
+    return " ".join(f"{v:.2f}" for v in shares.tolist())
+
+
+def _grad_shares(torch, got, want, rtol, atol_of_largest):
+    """The lanes' worst shares over the parameters' gradients."""
+    return torch.stack([
+        _shares(g, w, rtol, atol_of_largest * w.abs().max().item())
+        for g, w in zip(got, want)]).amax(dim=0)
+
+
+def _max_rel(got, want):
+    return max(((g - w).abs() / w.abs()).max().item()
+               for g, w in zip(got, want))
+
+
+def run_fixed_cov(torch, vt, native, dev="cuda"):
+    """The fixed-covariance MLL at the main path's full width: the 64
+    fitted states of phase 4 (its vol paths and data-model parameters on
+    its series; the main path runs first when it has not),
+    ``VoltGP.make_cov_cache`` (K2, ``(64, 999, 999)``, then a batched
+    float32 ``eigh``) and ``mll_fixed_cov`` with its gradient in the data
+    model's parameters, held to the Kalman MLL of the same states (S1,
+    forward and adjoint): values rel ``FIXED_COV_VALUE_RTOL``, gradients
+    rtol ``FIXED_COV_GRAD_RTOL`` with atol 1e-5 of the largest.  S1 is
+    also held to the same form with its ``eigh`` in float64 at rel
+    ``KALMAN_F64_RTOL``.  Each lane's share of each tolerance is printed,
+    with the times of K2, of ``make_cov_cache`` and of each MLL with its
+    gradient."""
+    from volt_tpu_torch.convert import load_jax_params
+    from volt_tpu_torch.gp.exact import FixedCovCache, exact_mll_fixed_cov
+    from volt_tpu_torch.models import VoltGP, make_mean
+
+    if "main_fit" not in SHARED:
+        run_main_path(torch, vt, native)
+    x, ys, aux, cfg = SHARED["main_fit"]
+    log_y = torch.log(ys[..., 1:])
+    vol = aux["vol"]
+    volt = load_jax_params(VoltGP(mean=make_mean(cfg.mean_func, k=cfg.k),
+                                  integral_rule=cfg.integral_rule),
+                           aux["volt_params"], dev)
+    names, params = zip(*volt.named_parameters())
+    _reset_peak(torch, dev)
+
+    native.launches.clear()
+    t0 = time.perf_counter()
+    cache = volt.make_cov_cache(x, vol)
+    _sync(torch, dev)
+    cache_s = time.perf_counter() - t0
+    fixed = volt.mll_fixed_cov(cache, x, log_y)
+    g_fixed = torch.autograd.grad(fixed.sum(), params)
+    kalman = volt.mll_kalman(x, log_y, vol)
+    g_kalman = torch.autograd.grad(kalman.sum(), params)
+    _sync(torch, dev)
+    secs = time.perf_counter() - t0
+    launches = dict(native.launches)
+
+    # the witness: the same form with its eigh in float64
+    t1 = time.perf_counter()
+    evals64, evecs64 = torch.linalg.eigh(volt.train_cov(x, vol).double())
+    cache64 = FixedCovCache(evals=evals64.clamp(min=0.0), evecs=evecs64)
+    exact64 = exact_mll_fixed_cov(
+        log_y.double(), volt.train_mean(x, log_y).double(), cache64,
+        volt.likelihood.noise().double())
+    g_exact64 = torch.autograd.grad(exact64.sum(), params)
+    del evals64, evecs64, cache64
+    _sync(torch, dev)
+    witness_s = time.perf_counter() - t1
+    peak = _peak_gib(torch, dev)
+
+    fixed, kalman = fixed.detach(), kalman.detach()
+    kalman64, exact64 = kalman.double(), exact64.detach()
+    vtol, gtol, ktol = (FIXED_COV_VALUE_RTOL, FIXED_COV_GRAD_RTOL,
+                        KALMAN_F64_RTOL)
+    v_shares = _shares(fixed, kalman, vtol, 0.0)
+    g_shares = _grad_shares(torch, g_fixed, g_kalman, gtol, 1e-5)
+    k_shares = _shares(kalman64, exact64, ktol, 0.0)
+    kg_shares = _grad_shares(torch, [g.double() for g in g_kalman],
+                             g_exact64, ktol, 1e-7)
+    v_rel = ((fixed - kalman).abs() / kalman.abs()).max().item()
+    g_rel = _max_rel(g_fixed, g_kalman)
+    k_rel = ((kalman64 - exact64).abs() / exact64.abs()).max().item()
+    kg_rel = _max_rel([g.double() for g in g_kalman], g_exact64)
+    b, n = log_y.shape
+    print(f"   B={b}, n={n}: cache {tuple(cache.evecs.shape)} "
+          f"{cache.evecs.dtype}; MLL/n fixed-covariance (K2, eigh) "
+          f"{fixed.mean().item():.7f}, Kalman (S1) "
+          f"{kalman.mean().item():.7f}, means over lanes; the parameters "
+          f"{list(names)}; {secs:.3f} s (make_cov_cache {cache_s:.3f} s), "
+          f"the float64 witness {witness_s:.3f} s, peak {peak:.2f} GiB "
+          f"allocated ({CARD})")
+    print(f"   float32 fixed-covariance against S1, value: largest rel diff "
+          f"{v_rel:.3e}; rel {vtol:.3g}, worst share "
+          f"{v_shares.max().item():.3f}; each lane: "
+          f"{_fmt_shares(v_shares)}")
+    print(f"   gradient: largest rel diff {g_rel:.3e} (JAX's float32 "
+          f"{JAX_F32_GRAD_REL:.2e}); rtol {gtol:.3g}, atol 1e-5 of the "
+          f"largest, worst share {g_shares.max().item():.3f}; each lane: "
+          f"{_fmt_shares(g_shares)}")
+    print(f"   S1 against the form with its eigh in float64, value: largest "
+          f"rel diff {k_rel:.3e}, worst share {k_shares.max().item():.3f}; "
+          f"gradient: largest rel diff {kg_rel:.3e}, worst share "
+          f"{kg_shares.max().item():.3f} (rel {ktol:g}, atol 1e-7 of the "
+          f"largest); each lane's worse: "
+          f"{_fmt_shares(torch.maximum(k_shares, kg_shares))}")
+    print(f"   kernel launches in the checked calls: {launches}")
+    if not bool(v_shares.max() <= 1.0 and g_shares.max() <= 1.0):
+        fail("fixed_cov: the fixed-covariance MLL or its gradient disagrees "
+             "with the Kalman MLL of the same states (whether the float32 "
+             "eigh or a fault: tests/torch_fixed_cov_states.py)")
+    if not bool(k_shares.max() <= 1.0 and kg_shares.max() <= 1.0):
+        fail("fixed_cov: the Kalman MLL (S1) or its adjoint disagrees with "
+             "the fixed-covariance MLL with its eigh in float64")
+    if dev == "cuda":
+        for sym in ("volt_covariance", "volt_kalman_forward",
+                    "volt_kalman_backward"):
+            if launches.get(sym, 0) < 1:
+                fail(f"fixed_cov: {sym} was not launched")
+
+    times = {"make_cov_cache_ms": 1e3 * cache_s}
+    if dev == "cuda":
+        times["k2_ms"] = cuda_ms(torch, lambda: volt.train_cov(x, vol))
+        times["mll_grad_ms"] = cuda_ms(torch, lambda: torch.autograd.grad(
+            volt.mll_fixed_cov(cache, x, log_y).sum(), params), reps=3,
+            calls=3)
+        times["kalman_grad_ms"] = cuda_ms(torch, lambda: torch.autograd.grad(
+            volt.mll_kalman(x, log_y, vol).sum(), params), reps=3, calls=3)
+        times["eigh_ms"] = times["make_cov_cache_ms"] - times["k2_ms"]
+        print(f"   ms a call: K2 (with the vol integral) "
+              f"{times['k2_ms']:.4f}, eigh {times['eigh_ms']:.2f} "
+              f"(make_cov_cache's one call less K2), fixed-covariance "
+              f"MLL and gradient {times['mll_grad_ms']:.3f}, Kalman MLL and "
+              f"gradient {times['kalman_grad_ms']:.3f} ({CARD})")
+    return launches, {"s": secs, "witness_s": witness_s, "peak_gib": peak,
+                      "mll_fixed_cov_mean": fixed.mean().item(),
+                      "mll_kalman_mean": kalman.mean().item(),
+                      "value_rel_max": v_rel, "grad_rel_max": g_rel,
+                      "value_share_max": v_shares.max().item(),
+                      "grad_share_max": g_shares.max().item(),
+                      "kalman_f64_value_rel_max": k_rel,
+                      "kalman_f64_grad_rel_max": kg_rel,
+                      "kalman_f64_share_max": max(
+                          k_shares.max().item(), kg_shares.max().item()),
+                      "value_shares": v_shares.tolist(),
+                      "grad_shares": g_shares.tolist(), **times}
 
 
 def run_gpcv_gh(torch, vt, native, dev="cuda", b=64, n=999, adam_iters=300,
@@ -2282,8 +2484,9 @@ def run_evaluation(torch, vt, native, dev="cuda"):
 # The timing phase's items: (tool, its flags, the environment it reads).
 # Every tool runs at its published width; only iterations, repeats and
 # the list of sizes are cut from the tools' defaults (in brackets), to
-# keep the phase within 25 s of a smoke that runs near its 300 s (the
-# phase took 7.1 s on an H100)
+# keep the phase within 45 s of a smoke that runs near its 300 s (the
+# phase took 7.1 s on an H100 before ``bench_compile``, whose child
+# process, build and first call were expected to take about 20 s)
 TIMING_ITEMS = [
     ("ablate_stages", ["64", "1000"],
      {"ABLATE_ITERS": "5", "ABLATE_NSAMPLE": "1000",  # (300)
@@ -2303,6 +2506,9 @@ TIMING_ITEMS = [
     ("bench_fbm", ["--ntrain", "1000", "--assets", "8", "--iters", "5",
                    "--repeats", "1"], {}),  # (400, 1000, 2000; 300, 2)
     ("bench_voltcov", ["--batch", "64", "--n", "999", "--reps", "30"], {}),
+    ("bench_compile", ["--assets", "64", "--ntrain", "1000", "--iters", "5",
+                       "--nsample", "1000", "--reps", "1"],
+     {}),  # (64 and 500; 300, 3)
 ]
 # The bound that tests/test_tools.py::test_bench_refit holds the JAX
 # tool's vol_rel_err_mean to
@@ -2328,12 +2534,15 @@ def run_timing(torch, vt, native, dev="cuda"):
     through its ``main`` at its published width with the depth cut
     (``TIMING_ITEMS``): the stage split, the warm refits, the Kronecker
     chain at T=1 and 64, the n-scaling of one asset (n=400 and 25000) and
-    of B=16 (ntrain 400 and 8000), the FBM pipeline at 8 x 1000 and K2
-    against its twin at (64, 999).  Each tool's lines are printed with
-    the card; checks: every ``ok`` and finite number the tools print,
-    K2 bit-identical to its twin, ``bench_refit``'s ``vol_rel_err_mean``
-    under ``REFIT_VOL_ERR_BOUND``, K1, S1 and K2 launched, and every K1
-    and S1 launch at a shape that the kernels phase checks."""
+    of B=16 (ntrain 400 and 8000), the FBM pipeline at 8 x 1000, K2
+    against its twin at (64, 999) and the time to first forecast at 64 x
+    1000 in a fresh child.  Each tool's lines are printed with the card;
+    checks: every ``ok`` and finite number the tools print, K2
+    bit-identical to its twin, ``bench_refit``'s ``vol_rel_err_mean``
+    under ``REFIT_VOL_ERR_BOUND``, ``bench_compile``'s child built the
+    kernels, K1, S1 and K2 launched, and every K1 and S1 launch at a
+    shape that the kernels phase checks (the child's launches are its
+    own: at (64, 999) with k=100, shapes that phase checks)."""
     import importlib
     import io
     from unittest import mock
@@ -2379,6 +2588,11 @@ def run_timing(torch, vt, native, dev="cuda"):
                  f"{rec['finite']}, ok_frac {rec['ok_frac']}")
     if not results["bench_voltcov"]["out"]["bit_identical"]:
         fail("timing: K2 differs from its plain twin")
+    for rec in results["bench_compile"]["out"]:
+        if "error" in rec:
+            fail(f"timing: bench_compile's child failed: {rec['error']}")
+        if dev == "cuda" and not rec["build_s"] > 0:
+            fail("timing: bench_compile's child built nothing (build_s 0)")
     print(f"   K1 and S1 launch shapes in the phase: {sorted(seen)}")
     if dev == "cuda":
         unchecked = sorted(seen - _checked_shapes())
@@ -2668,6 +2882,11 @@ def smoke():
             fail(f"{sym} was not launched by Volt().Train()")
     done(t0)
 
+    t0 = phase("fixed_cov: the fixed-covariance MLL of the main path's 64 "
+               "states against the Kalman MLL, n=999")
+    fc_launches, fixed_cov = run_fixed_cov(torch, vt, native)
+    done(t0)
+
     t0 = phase("GPCV with the GH-75 term: B=64, n=999, Adam and NGVI")
     gh_launches, gh = run_gpcv_gh(torch, vt, native)
     paths["gh_ell_forward"] = ("learn_gpcv(ell_method='quadrature')",
@@ -2736,6 +2955,7 @@ def smoke():
         k["launches_by_path"] = {
             "fit_forecast_batch": launches.get(sym, 0),
             "Volt().Train()": api["train_launches"].get(sym, 0),
+            "fixed_cov": fc_launches.get(sym, 0),
             "price_options_batch": pricing_launches.get(sym, 0),
             "fbm_path": fbm_launches.get(sym, 0),
             "multitask": mt_launches.get(sym, 0),
@@ -2748,7 +2968,8 @@ def smoke():
             fail(f"kernel {k['name']} was not launched by its path ({path})")
 
     print(json.dumps({"card": card, "main_path": main_path,
-                      "reference_api": api, "gpcv_gh": gh,
+                      "reference_api": api, "fixed_cov": fixed_cov,
+                      "gpcv_gh": gh,
                       "gpcv_full": gpcv_full, "gpcv_cv": gpcv_cv,
                       "gpcv_sparse": gpcv_sparse,
                       "option_pricing": pricing, "fbm_path": fbm,
@@ -2768,6 +2989,8 @@ PHASES = {
     "kernel_times": lambda torch, vt, native: {"ewma": time_ewma(torch),
                                                "gh_ell": time_gh_ell(torch)},
     "main_path": lambda torch, vt, native: run_main_path(torch, vt,
+                                                         native)[1],
+    "fixed_cov": lambda torch, vt, native: run_fixed_cov(torch, vt,
                                                          native)[1],
     "gpcv_full": lambda torch, vt, native: run_gpcv_full(torch, vt,
                                                          native)[1],

@@ -18,11 +18,6 @@ NOT_YET = {
     # "Do not port": ``ConfigEq`` keys jax.jit's static-argument cache; the
     # port's modules are nn.Modules and its configs frozen dataclasses
     "ConfigEq": "do not port",
-    # "Do not port": only the JAX package's tests use the fixed-covariance
-    # MLL; the port builds the spectral basis with int64 angles, so the
-    # JAX package's int32 bound on n does not apply
-    **dict.fromkeys(("FixedCovCache", "make_fixed_cov_cache",
-                     "exact_mll_fixed_cov", "spectral_n_ok"), "do not port"),
 }
 
 

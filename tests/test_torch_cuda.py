@@ -9,6 +9,7 @@ harness::
 
 import importlib
 
+import numpy as np
 import pytest
 import torch
 
@@ -656,3 +657,60 @@ def test_dryrun_multichip_on_the_card(cuda):
     from volt_tpu_torch import graft_entry
 
     graft_entry.dryrun_multichip(2, timeout=300.0)
+
+
+def test_fixed_cov_mll_card_matches_cpu(cuda):
+    """``VoltGP.make_cov_cache`` (K2, then MAGMA's ``eigh``) and
+    ``mll_fixed_cov`` with its gradient in the raw noise, on a small state
+    (``sabr_paths(steps=121, seed=8, n_paths=2)``, raw noise -6 and -3),
+    against the CPU at rtol 1e-4 (gradients 1e-3, atol 1e-5 of the
+    largest); K2 launched once."""
+    from volt_tpu_torch.data import sabr_paths
+    from volt_tpu_torch.models import VoltGP, make_mean
+
+    f, vol = sabr_paths(steps=121, seed=8, n_paths=2)
+    x = torch.arange(120, dtype=torch.float32) / 252.0
+    log_y = torch.log(torch.tensor(f[:, 1:]))
+    vol = torch.tensor(vol[:, 1:])
+    out = {}
+    for dev in ("cpu", "cuda"):
+        volt = VoltGP(mean=make_mean("ewma", k=20)).init((2,), device=dev)
+        with torch.no_grad():
+            volt.likelihood.raw_noise.copy_(torch.tensor([[-6.0], [-3.0]]))
+        before = native.launches["volt_covariance"]
+        cache = volt.make_cov_cache(x.to(dev), vol.to(dev))
+        launched = native.launches["volt_covariance"] - before
+        assert launched == (1 if dev == "cuda" else 0)
+        mll = volt.mll_fixed_cov(cache, x.to(dev), log_y.to(dev))
+        grad, = torch.autograd.grad(mll.sum(), volt.likelihood.raw_noise)
+        out[dev] = (mll.detach().cpu(), grad.cpu())
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-4,
+                               atol=0.0)
+    torch.testing.assert_close(out["cuda"][1], out["cpu"][1], rtol=1e-3,
+                               atol=1e-5 * out["cpu"][1].abs().max().item())
+
+
+def test_fixed_cov_cache_restores_the_linalg_backend(cuda):
+    """``make_fixed_cov_cache`` on the card takes its ``eigh`` through
+    MAGMA and leaves torch's preferred linalg library as it found it; its
+    eigenvalues equal float64's at atol 1e-5 of the largest (a min-kernel
+    covariance, n=300, from ``default_rng(3)``)."""
+    from volt_tpu_torch.gp.exact import make_fixed_cov_cache
+    from volt_tpu_torch.ops.volint import min_index_covariance
+
+    rng = np.random.default_rng(3)
+    s = torch.tensor(np.cumsum(rng.uniform(0.5, 1.5, (2, 300)), axis=-1),
+                     dtype=torch.float32)
+    cov = min_index_covariance(s)
+    want = torch.linalg.eigvalsh(cov.double())
+    before = torch.backends.cuda.preferred_linalg_library()
+    try:
+        torch.backends.cuda.preferred_linalg_library("cusolver")
+        cache = make_fixed_cov_cache(cov.cuda())
+        assert torch.backends.cuda.preferred_linalg_library() == \
+            torch._C._LinalgBackend.Cusolver
+    finally:
+        torch.backends.cuda.preferred_linalg_library(before)
+    assert torch.cuda.has_magma
+    torch.testing.assert_close(cache.evals.double().cpu(), want, rtol=0.0,
+                               atol=1e-5 * want.abs().max().item())

@@ -426,6 +426,53 @@ def test_variational_elbo_gradient_and_predict(data, mtv):
     _close_max(cov, jcov, 1e-4, 1e-5)
 
 
+def test_tridiag_family_equals_full_in_float64():
+    """The port's counterpart of ``tools/tridiag_family_equiv.py`` (run by
+    ``tests/test_multitask.py``'s ``test_equivalence_float64``): its
+    inputs (``default_rng(11)``, n=14, T=3) in float64, one distribution
+    in both families, the tridiagonal precision's bidiagonal factor
+    ``(d, e)`` and the full root ``chol((L L^T)^{-1})``.  Held at the JAX
+    payload's tolerances; measured here: KL 2.7e-16 (tol 1e-10), marginal
+    variances 4.4e-16 (1e-10), predictive mean 0 (1e-9) and covariance
+    4.4e-16 (1e-8), ELBO under the cv likelihood 1.6e-16 (1e-9)."""
+    f64 = torch.float64
+    rng = np.random.default_rng(11)
+    n, t = 14, 3
+    x = torch.tensor(np.sort(rng.uniform(0.01, 1.0, n)))
+    d = rng.uniform(0.5, 2.0, n)
+    e = rng.uniform(-0.3, 0.3, n - 1)
+    low = np.diag(d) + np.diag(e, -1)
+    rx = np.linalg.cholesky(np.linalg.inv(low @ low.T))
+    rt = np.tril(rng.uniform(0.2, 1.0, (t, t))) + np.eye(t)
+    shared = {"variational_mean": rng.normal(0, 1, (n, t)),
+              "variational_task_covar_root": rt,
+              "mean_constants": rng.normal(0, 0.5, t)}
+    mod_f = MultitaskVariationalGP(t).init(x, dtype=f64)
+    mod_q = MultitaskVariationalGP(t, q="tridiag").init(x, dtype=f64)
+    for mod, own in ((mod_f, {"variational_covar_root": rx}),
+                     (mod_q, {"q_log_d": np.log(d), "q_e": e})):
+        for k, v in {**shared, **own}.items():
+            setattr(mod, k, torch.nn.Parameter(torch.tensor(v, dtype=f64)))
+    mod_q.data_kernel.load_state_dict(mod_f.data_kernel.state_dict())
+    mod_q.index_kernel.load_state_dict(mod_f.index_kernel.state_dict())
+
+    def rel(a, b):
+        return float(torch.max(torch.abs(a - b) / torch.abs(b)))
+
+    with torch.no_grad():
+        assert rel(mod_q.kl_divergence(x), mod_f.kl_divergence(x)) < 1e-10
+        assert rel(mod_q.marginal_variances(),
+                   mod_f.marginal_variances()) < 1e-10
+        test_x = x[-1] + torch.tensor([0.05, 0.11, 0.2], dtype=f64)
+        (m_f, c_f), (m_q, c_q) = (mod_f.predict(x, test_x),
+                                  mod_q.predict(x, test_x))
+        assert float(torch.max(torch.abs(m_q - m_f))) < 1e-9
+        assert float(torch.max(torch.abs(c_q - c_f))) < 1e-8
+        lik = VolatilityGaussianLikelihood().init(dtype=f64)
+        y = torch.tensor(rng.normal(0, 0.3, (n, t)))
+        assert rel(mod_q.elbo(x, y, lik), mod_f.elbo(x, y, lik)) < 1e-9
+
+
 # --- the training entries, the rollout, Volt -------------------------------------
 
 

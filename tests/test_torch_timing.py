@@ -1,10 +1,12 @@
 """The port's timing tools (``volt_tpu_torch/tools/``: ``ablate_stages``,
 ``bench_refit``, ``bench_refit_multitask``, ``bench_multitask``,
-``bench_scaling``, ``scaling_study``, ``bench_fbm``, ``bench_voltcov``)
-against the JAX package's (``tools/*.py``) on the CPU: each ``main`` at
-tiny flags with ``--device cpu`` prints the JAX tool's keys; each tool
-builds the JAX tool's inputs bit for bit (the JAX tool's own code run
-with its fits replaced by recorders); the untimed outputs agree.
+``bench_scaling``, ``scaling_study``, ``bench_fbm``, ``bench_voltcov``,
+``bench_compile``) against the JAX package's (``tools/*.py``) on the CPU:
+each ``main`` at tiny flags with ``--device cpu`` prints the JAX tool's
+keys; each tool builds the JAX tool's inputs bit for bit (the JAX tool's
+own code run with its fits replaced by recorders); the untimed outputs
+agree.  ``bench_compile``'s child runs on a copy of the package without
+its build directory.
 
 Tolerances: ``bench_multitask``'s last losses rtol 1e-4 (five float32
 Adam steps of the same loss in two libraries); the refit tools'
@@ -17,6 +19,7 @@ steps)."""
 import dataclasses
 import importlib
 import json
+import os
 import sys
 from pathlib import Path
 
@@ -370,11 +373,67 @@ def test_bench_voltcov_plain_route_is_bit_identical(monkeypatch):
     assert out["route"] == "plain" and out["bit_identical"]
 
 
+# --- bench_compile: a fresh child on a copy of the package ---------------------
+
+COMPILE_TINY = ["--assets", "2", "--ntrain", "60", "--iters", "2",
+                "--nsample", "16", "--reps", "1"]
+# the JAX tool's keys less ``unroll``, and the build's share
+COMPILE_KEYS = {"assets", "ntrain", "backend", "first_s", "steady_ms",
+                "build_s"}
+
+
+def test_bench_compile_child_runs_on_a_copy_without_build(monkeypatch,
+                                                           capsys):
+    """The child starts in a directory that holds a copy of the package
+    without ``_build/`` (so on the card it builds the kernels), imports
+    that copy, and prints the JAX tool's keys less ``unroll``, finite;
+    on the CPU nothing is built (``build_s`` 0)."""
+    import subprocess
+
+    from volt_tpu_torch.tools import bench_compile
+
+    real_run, seen = subprocess.run, []
+
+    def spy(cmd, **kwargs):
+        pkg = Path(kwargs["cwd"]) / "volt_tpu_torch"
+        seen.append(pkg)
+        assert (pkg / "native.py").exists() and (pkg / "csrc").is_dir()
+        assert not (pkg / "_build").exists()
+        # the child writes the bytecode of what it imports beside it
+        env = {k: v for k, v in os.environ.items()
+               if k != "PYTHONDONTWRITEBYTECODE"}
+        res = real_run(cmd, env=env, **kwargs)
+        assert (pkg / "tools" / "__pycache__").is_dir(), res.stderr
+        return res
+
+    monkeypatch.setattr(subprocess, "run", spy)
+    out = bench_compile.main(["--device", "cpu", *COMPILE_TINY])
+    rec = json.loads(_lines(capsys)[-1])
+    assert len(seen) == 1 and [rec] == out, out
+    assert set(rec) == COMPILE_KEYS
+    assert rec["assets"] == 2 and rec["backend"] == "cpu"
+    assert rec["first_s"] > 0 and rec["steady_ms"] > 0
+    assert rec["build_s"] == 0.0
+    assert all(np.isfinite(v) for v in (rec["first_s"], rec["steady_ms"]))
+
+
+def test_bench_compile_runs_on_the_card_by_default():
+    """Without ``--device`` the tool runs on the card: with no card it
+    raises before it starts a child."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: chip_smoke.py runs the tool there")
+    from volt_tpu_torch.tools import bench_compile
+
+    with pytest.raises((RuntimeError, AssertionError)):
+        bench_compile.main(COMPILE_TINY)
+
+
 def test_the_tools_import_no_jax():
     """The port's timing tools import neither JAX nor the JAX package."""
     import subprocess
 
-    mods = ", ".join(f"volt_tpu_torch.tools.{name}" for name in TINY)
+    mods = ", ".join(f"volt_tpu_torch.tools.{name}"
+                     for name in [*TINY, "bench_compile"])
     code = (f"import sys, {mods}; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'volt_tpu.'))]; "

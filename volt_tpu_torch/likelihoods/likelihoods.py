@@ -40,6 +40,17 @@ class GaussianLikelihood(nn.Module):
     def noise(self):
         return self.constraint.forward(self.raw_noise)
 
+    def marginal_covariance(self, cov):
+        """``K + noise I`` over the trailing two dims."""
+        noise = self.noise()[..., 0]
+        eye = torch.eye(cov.shape[-1], dtype=cov.dtype, device=cov.device)
+        return cov + noise[..., None, None] * eye
+
+    def log_prob(self, y, f):
+        """The elementwise Gaussian log density of ``y`` about ``f``."""
+        noise = self.noise()
+        return -0.5 * ((y - f) ** 2 / noise + torch.log(noise) + _LOG_2PI)
+
 
 class MultitaskGaussianLikelihood(GaussianLikelihood):
     """One noise shared by ``num_tasks`` outputs (the reference sets it to

@@ -6,7 +6,11 @@ path and the nested vol GP; the forecast lives in
 
 The dense MLL builds the covariance (kernel K2 on CUDA) and factors it;
 the Kalman MLL (kernel S1) is the same function in O(n), which the data
-fit trains on."""
+fit trains on.  The covariance is fixed while the data model fits (the
+vol path is frozen), so the same MLL can also be taken against one
+eigendecomposition of it, O(n^2) a step (:meth:`VoltGP.make_cov_cache`
+and :meth:`VoltGP.mll_fixed_cov`): no fit uses that form; it is kept as
+an independent check of the Kalman values."""
 
 from __future__ import annotations
 
@@ -16,7 +20,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..gp.exact import exact_mll
+from ..gp.exact import exact_mll, exact_mll_fixed_cov, make_fixed_cov_cache
 from ..kernels import VolatilityKernel
 from ..likelihoods import GaussianLikelihood
 from ..means import (ConstantMean, DEWMAMean, EWMAMean, LinearMean,
@@ -117,6 +121,17 @@ class VoltGP(nn.Module):
         noise = self.likelihood.noise()[..., 0]
         return brownian_noise_mll_kalman(self.kernel.integral(x, vol_path),
                                          noise, y - self.train_mean(x, y))
+
+    def make_cov_cache(self, x, vol_path):
+        """The eigendecomposition of the train covariance (kernel K2 on
+        CUDA, then ``eigh``) for :meth:`mll_fixed_cov`."""
+        return make_fixed_cov_cache(self.train_cov(x, vol_path))
+
+    def mll_fixed_cov(self, cache, x, y):
+        """The MLL against a pre-factorised covariance: the Kalman MLL's
+        independent O(n^2)-a-step twin (see the module docstring)."""
+        return exact_mll_fixed_cov(y, self.train_mean(x, y), cache,
+                                   self.likelihood.noise())
 
     def fit_state(self, train_x, train_y, vol_path,
                   vol_state: Optional[BMGPState] = None) -> VoltState:

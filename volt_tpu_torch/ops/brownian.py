@@ -23,6 +23,7 @@ import torch
 __all__ = [
     "future_grid_ok",
     "nan_poison",
+    "spectral_n_ok",
     "min_kernel_eigenvalues",
     "min_kernel_spectrum",
     "min_kernel_project",
@@ -63,13 +64,33 @@ def min_kernel_eigenvalues(n: int, dtype=torch.float32, device=None):
                                   * (math.pi / (2 * (2 * n + 1)))) ** 2)
 
 
+def spectral_n_ok(n: int) -> bool:
+    """Whether :func:`min_kernel_spectrum` is exact at this ``n``: its
+    angle reduction forms ``(2k+1) j`` with ``k <= n-1``, ``j <= n`` in
+    int64, at most ``(2n-1) n``, which must stay below ``2^63`` (``n <=
+    2^31``).
+
+    The JAX package forms the same products in int32, so its predicate is
+    ``False`` above ``n = 32768``; here the answer is ``True`` up to
+    ``2^31``, which covers every ``n`` whose ``n x n`` basis fits in
+    memory.  As in the JAX package, the bound concerns the materialised
+    basis alone: :func:`min_kernel_project` takes the FFT above n = 4096.
+    """
+    return (2 * n - 1) * n < 2**63
+
+
 def min_kernel_spectrum(n: int, dtype=torch.float32, device=None):
     """``(mu (n,), u (n, n) orthonormal columns, w (n,) = U^T 1)``.
 
     The sine arguments are reduced with exact integer arithmetic (int64)
     so float32 ``sin`` stays accurate where the raw angles reach
-    ``~2 n pi``.
+    ``~2 n pi``.  Raises ``ValueError`` where that reduction would
+    overflow (:func:`spectral_n_ok`).
     """
+    if not spectral_n_ok(n):
+        raise ValueError(f"min_kernel_spectrum: n={n} overflows the int64 "
+                         f"angle reduction (needs (2n-1)n < 2^63, i.e. "
+                         f"n <= 2^31)")
     mu = min_kernel_eigenvalues(n, dtype, device)
     k = torch.arange(n, device=device)
     j = torch.arange(1, n + 1, device=device)

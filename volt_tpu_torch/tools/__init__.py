@@ -18,5 +18,7 @@ The timing tools, each printing its first call beside its warm best:
 ``bench_refit_multitask`` (the warm refit of live serving),
 ``bench_multitask`` (the Kronecker chain per T), ``bench_scaling`` and
 ``scaling_study`` (the n-scaling), ``bench_fbm`` (the FBM path's cost per
-n) and ``bench_voltcov`` (kernel K2 against its plain twin).
+n), ``bench_voltcov`` (kernel K2 against its plain twin) and
+``bench_compile`` (the time to first forecast in a fresh process that
+builds the kernels).
 """
