@@ -1,0 +1,87 @@
+"""PSD-safe Cholesky and triangular solves (port of :mod:`volt_tpu.ops.chol`).
+
+:func:`psd_safe_cholesky` is the reference's jitter ladder: try the bare
+factor, and while it fails add ``jitter * 10**i`` to the diagonal for
+``i = 0..max_tries-1``.  Failure is read from ``torch.linalg.cholesky_ex``'s
+``info`` (no exception, so nothing is caught on the card); as in the JAX
+package called on a batch, one failed matrix retries the whole batch, and
+a factor that still fails comes back NaN in its lower triangle.  With
+``per_lane=True`` each matrix of the batch climbs its own ladder and only
+the failed ones are refactored: what ``jax.vmap`` of the JAX function
+gives, as in the JAX pipeline, which runs one asset's program a lane.
+Its backward is the standard Cholesky adjoint of the factor the ladder
+produced.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def _default_jitter(dtype) -> float:
+    # gpytorch's dtype-based starting jitter
+    return 1e-8 if dtype == torch.float64 else 1e-6
+
+
+def _factor(a):
+    """Lower Cholesky factor, NaN where it failed, and whether every
+    factor succeeded."""
+    chol, info = torch.linalg.cholesky_ex(a)
+    diag = torch.diagonal(chol, dim1=-2, dim2=-1)
+    good = (info == 0) & torch.all(torch.isfinite(diag) & (diag > 0), dim=-1)
+    # a failed factor is NaN in its lower triangle, as XLA's
+    chol = torch.tril(torch.where(good[..., None, None], chol, torch.nan))
+    return chol, bool(good.all())
+
+
+def _jitter_ladder(a, base_jitter: float, max_tries: int):
+    chol, ok = _factor(a)
+    i = 0
+    while not ok and i < max_tries:
+        chol, ok = _factor(add_jitter(a, base_jitter * 10.0 ** i))
+        i += 1
+    return chol
+
+
+class _PSDSafeCholesky(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, base_jitter, max_tries, per_lane):
+        ladder = _jitter_ladder_per_lane if per_lane else _jitter_ladder
+        chol = ladder(a, base_jitter, max_tries)
+        ctx.save_for_backward(chol)
+        return chol
+
+    @staticmethod
+    def backward(ctx, g):
+        # Murray (2016): Phi(L^T g), then L^{-T} (.) L^{-1}, symmetrised
+        (chol,) = ctx.saved_tensors
+        m = torch.tril(chol.mT @ g)
+        m = m - 0.5 * torch.diag_embed(torch.diagonal(m, dim1=-2, dim2=-1))
+        x1 = torch.linalg.solve_triangular(chol.mT, m, upper=True)
+        x2 = torch.linalg.solve_triangular(chol, x1, upper=False, left=False)
+        return 0.5 * (x2 + x2.mT), None, None, None
+
+
+def psd_safe_cholesky(a, jitter: float | None = None, max_tries: int = 3,
+                      per_lane: bool = False):
+    """Lower Cholesky factor with the deterministic jitter ladder
+    (``jitter=None``: 1e-6 for float32, 1e-8 for float64), climbed by the
+    whole batch, or with ``per_lane`` by each matrix alone."""
+    base = _default_jitter(a.dtype) if jitter is None else float(jitter)
+    return _PSDSafeCholesky.apply(a, base, int(max_tries), bool(per_lane))
+
+
+def solve_lower_triangular(chol, b):
+    """Solve ``L x = b`` (batch dims broadcast)."""
+    return torch.linalg.solve_triangular(chol, b, upper=False)
+
+
+def solve_upper_triangular(chol, b):
+    """Solve ``L^T x = b`` for lower-triangular ``L``."""
+    return torch.linalg.solve_triangular(chol.mT, b, upper=True)
+
+
+def cholesky_solve(chol, b):
+    """Solve ``(L L^T) x = b`` given the lower factor."""
+    return solve_upper_triangular(chol, solve_lower_triangular(chol, b))
+

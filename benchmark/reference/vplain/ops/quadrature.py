@@ -1,0 +1,40 @@
+"""Gauss–Hermite quadrature (port of :mod:`volt_tpu.ops.quadrature`).
+
+Physicists' Hermite nodes ``x_i`` / weights ``w_i``, computed once in
+float64 on the host; ``f`` is evaluated at ``sqrt(2) * sigma * x_i + mu``
+with weights ``w_i / sqrt(pi)``.
+"""
+
+from __future__ import annotations
+
+from functools import lru_cache
+import numpy as np
+import torch
+
+DEFAULT_NUM_LOCS = 75
+
+
+@lru_cache(maxsize=8)
+def _hermgauss(n: int):
+    x, w = np.polynomial.hermite.hermgauss(n)
+    return x, w / np.sqrt(np.pi)
+
+
+def gauss_hermite_nodes(num_locs: int = DEFAULT_NUM_LOCS,
+                        dtype=torch.float32, device=None):
+    """Return ``(locations, normalized_weights)`` as tensors."""
+    x, w = _hermgauss(num_locs)
+    return (torch.tensor(x, dtype=dtype, device=device),
+            torch.tensor(w, dtype=dtype, device=device))
+
+
+def expected_value(fn, mean, var, num_locs: int = DEFAULT_NUM_LOCS):
+    """``E_{f ~ N(mean, var)}[fn(f)]`` by Gauss–Hermite quadrature.
+
+    ``fn`` must broadcast over a new leading node axis; the result is
+    shaped like ``mean``.
+    """
+    locs, weights = gauss_hermite_nodes(num_locs, mean.dtype, mean.device)
+    shape = (num_locs,) + (1,) * mean.dim()
+    shifted = torch.sqrt(2.0 * var) * locs.reshape(shape) + mean
+    return torch.tensordot(weights, fn(shifted), dims=([0], [0]))
