@@ -714,3 +714,89 @@ def test_fixed_cov_cache_restores_the_linalg_backend(cuda):
     assert torch.cuda.has_magma
     torch.testing.assert_close(cache.evals.double().cpu(), want, rtol=0.0,
                                atol=1e-5 * want.abs().max().item())
+
+
+def test_spans_hold_their_kernels_on_the_profilers_clock(cuda):
+    """A span around ``synchronize``, one K1 launch and ``synchronize``
+    holds K1's device interval as the profiler stamps it: spans and the
+    card's events lie on one clock.  Prints the margins."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from volt_tpu_torch.utils.profiling import annotate, recording, spans
+
+    y = 4.0 + torch.randn(64, 999, device="cuda", generator=cuda)
+    tew.ewma(y, 300)
+    torch.cuda.synchronize()
+    spans()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof, recording():
+        with annotate("k1"):
+            torch.cuda.synchronize()
+            tew.ewma(y, 300)
+            torch.cuda.synchronize()
+    (span,) = spans()
+    k1 = [e for e in prof.profiler.kineto_results.events()
+          if e.device_type() == torch.autograd.DeviceType.CUDA
+          and "ewma_filter_kernel" in e.name()]
+    assert len(k1) == 1
+    start, end = k1[0].start_ns(), k1[0].start_ns() + k1[0].duration_ns()
+    print(f"K1 {end - start} ns on the card, {start - span.start_ns} ns "
+          f"after the span opened, {span.end_ns - end} ns before it closed")
+    assert span.start_ns <= start and end <= span.end_ns
+
+
+def sync_warnings(fn):
+    """``fn()`` with spans recorded under ``set_sync_debug_mode("warn")``:
+    for each host-device sync that PyTorch reports, the names of the
+    spans open at it and the line that made it."""
+    import warnings
+
+    from volt_tpu_torch.utils import profiling
+
+    found = []
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        if "synchronizing" in str(message):
+            found.append(([profiling._buffer[i][0]
+                           for i, _ in profiling._open],
+                          f"{filename}:{lineno}"))
+
+    before = torch.cuda.get_sync_debug_mode()
+    with warnings.catch_warnings():  # the switch itself reports a sync
+        warnings.simplefilter("ignore")
+        torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(), profiling.recording():
+            warnings.simplefilter("always")
+            warnings.showwarning = hook
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(before)
+    profiling.spans()
+    return found
+
+
+def test_every_sync_of_a_tick_is_in_a_sync_span(cuda):
+    """Over one warm tick of the batched pipeline (warm start, refit,
+    forecast), every sync that PyTorch reports falls inside a ``sync:``
+    span: the spans count every sync the program makes."""
+    from volt_tpu_torch.parallel import (PipelineConfig, fit_forecast_batch,
+                                         warm_start)
+
+    b, n, h = 8, 200, 20
+    x = torch.arange(n, device="cuda") / 252.0
+    test_x = x[-1] + torch.arange(1, h + 1, device="cuda") / 252.0
+    ys = 100.0 * torch.exp(torch.cumsum(0.01 * torch.randn(
+        b, n + 2, device="cuda", generator=cuda), dim=-1))
+    cfg = PipelineConfig(gpcv_iters=3, vol_iters=3, data_iters=3, k=20,
+                         nsample=64, output="quantiles")
+    _, aux = fit_forecast_batch(cuda, x, ys[:, :-1], test_x, cfg)
+
+    def tick():
+        init = warm_start(aux, shift=1, n=n)
+        fit_forecast_batch(cuda, x, ys[:, 1:], test_x, cfg, init)
+
+    found = sync_warnings(tick)
+    print("syncs of a tick:", found)
+    assert found
+    assert [f for f in found if not any(
+        s.startswith("sync:") for s in f[0])] == []

@@ -17,6 +17,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import annotate
+
 __all__ = [
     "add_jitter",
     "psd_safe_cholesky",
@@ -45,7 +47,8 @@ def _factor(a):
     good = (info == 0) & torch.all(torch.isfinite(diag) & (diag > 0), dim=-1)
     # a failed factor is NaN in its lower triangle, as XLA's
     chol = torch.tril(torch.where(good[..., None, None], chol, torch.nan))
-    return chol, bool(good.all())
+    with annotate("sync:jitter"):
+        return chol, bool(good.all())
 
 
 def _jitter_ladder(a, base_jitter: float, max_tries: int):
@@ -66,7 +69,8 @@ def _jitter_ladder_per_lane(a, base_jitter: float, max_tries: int):
     diag = torch.diagonal(chol, dim1=-2, dim2=-1)
     bad = ~torch.all(torch.isfinite(diag) & (diag > 0), dim=-1)
     for i in range(max_tries):
-        idx = torch.nonzero(bad).flatten()
+        with annotate("sync:jitter"):
+            idx = torch.nonzero(bad).flatten()
         if idx.numel() == 0:
             break
         retry, _ = _factor(add_jitter(flat[idx], base_jitter * 10.0 ** i))

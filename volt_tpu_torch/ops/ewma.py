@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import native
+from ..utils.profiling import annotate
 
 __all__ = [
     "ewma_weights",
@@ -49,7 +50,8 @@ def ewma_weights(k: int, dtype=torch.float32, device=None):
     not wait on a host-to-device copy of its taps; callers must not
     modify the returned tensor.
     """
-    return torch.tensor(_ewma_weights_np(k), dtype=dtype, device=device)
+    with annotate("sync:ewma_taps"):
+        return torch.tensor(_ewma_weights_np(k), dtype=dtype, device=device)
 
 
 @lru_cache(maxsize=64)

@@ -12,6 +12,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from ..utils.profiling import annotate
+
 __all__ = ["gauss_hermite_nodes", "expected_value", "DEFAULT_NUM_LOCS"]
 
 DEFAULT_NUM_LOCS = 75
@@ -27,8 +29,9 @@ def gauss_hermite_nodes(num_locs: int = DEFAULT_NUM_LOCS,
                         dtype=torch.float32, device=None):
     """Return ``(locations, normalized_weights)`` as tensors."""
     x, w = _hermgauss(num_locs)
-    return (torch.tensor(x, dtype=dtype, device=device),
-            torch.tensor(w, dtype=dtype, device=device))
+    with annotate("sync:gh_nodes"):
+        return (torch.tensor(x, dtype=dtype, device=device),
+                torch.tensor(w, dtype=dtype, device=device))
 
 
 def expected_value(fn, mean, var, num_locs: int = DEFAULT_NUM_LOCS):

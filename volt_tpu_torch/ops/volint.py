@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import annotate
+
 __all__ = ["cumtrapz_weights", "vol_integral", "min_index_covariance",
            "brownian_cholesky"]
 
@@ -22,8 +24,9 @@ def cumtrapz_weights(x):
     dx = (x[..., 1] - x[..., 0])[..., None]
     n = x.shape[-1]
     scale = torch.ones(n, dtype=x.dtype, device=x.device)
-    scale[0] = 0.5
-    scale[-1] = 0.5
+    with annotate("sync:cumtrapz"):  # each write copies a host scalar
+        scale[0] = 0.5
+        scale[-1] = 0.5
     return dx.expand(x.shape) * scale
 
 

@@ -26,6 +26,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .utils.profiling import annotate
+
 __all__ = ["Adam"]
 
 
@@ -53,9 +55,11 @@ class Adam:
         like = self.params[0] if self.params else torch.zeros(())
         dt = torch.empty((), dtype=like.dtype).numpy().dtype
         t = np.arange(1, max(steps, 1) + 1).astype(dt)
-        self.c1, self.c2 = (torch.tensor(dt.type(1) - dt.type(b) ** t,
-                                         device=like.device)
-                            for b in (b1, b2))
+        # a copy from the host's pageable memory waits for the device
+        with annotate("sync:adam_tables"):
+            self.c1, self.c2 = (torch.tensor(dt.type(1) - dt.type(b) ** t,
+                                             device=like.device)
+                                for b in (b1, b2))
         self.t = 0
 
     def zero_grad(self):

@@ -28,7 +28,6 @@ before the quantiles.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Optional
 
 import torch
@@ -40,6 +39,7 @@ from ..models.volt import VoltGP, make_mean
 from ..rollouts import _rollout_volt_scan, sample_vol_paths
 from ..train import (_fit_bmgp, _fit_gpcv, _fit_volt, _is_equispaced,
                      scaled_returns)
+from ..utils.profiling import annotate, annotated, stage
 
 __all__ = ["PipelineConfig", "fit_forecast", "fit_forecast_batch",
            "shard_batch", "warm_start"]
@@ -120,26 +120,6 @@ def _check_spectral_grid(train_x, config: PipelineConfig):
         raise ValueError("vol_mll='spectral' requires an equispaced train_x")
 
 
-class _StageClock:
-    """Wall seconds per stage; on a CUDA device each mark first waits for
-    the device, so a stage's time includes the work it queued."""
-
-    def __init__(self, device: torch.device):
-        self.device = device
-        self.seconds = {}
-        self._last = self._now()
-
-    def _now(self):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        return time.perf_counter()
-
-    def mark(self, stage: str):
-        now = self._now()
-        self.seconds[stage] = now - self._last
-        self._last = now
-
-
 def shard_batch(mesh, output: str = "samples"):
     """``(in, out)`` layouts of the batched pipeline on an ``(asset, path)``
     mesh, as :meth:`Mesh.shard` / :meth:`Mesh.gather` take them: the
@@ -173,6 +153,7 @@ def _local_paths(mesh, nsample: int) -> int:
     return nsample // paths
 
 
+@annotated("call")
 def fit_forecast_batch(generator, train_x, train_ys, test_x,
                        config: PipelineConfig, init_params=None, noise=None,
                        mesh=None):
@@ -191,7 +172,9 @@ def fit_forecast_batch(generator, train_x, train_ys, test_x,
     ``forecast_mean``/``forecast_std`` ``(B, H)``).  ``aux`` holds the
     per-asset ``ok`` flags, the vol path, the final and per-step losses
     ``(B, iters)``, the fitted parameters as nested dicts (the JAX
-    pytree layout, leading asset axis) and ``stage_seconds``.
+    pytree layout, leading asset axis) and ``stage_seconds``, the wall
+    seconds of each stage (``utils.profiling.stage``), which wait for the
+    card, so each holds the work its stage queued.
 
     ``init_params``: optional warm start ``{"gpcv", "vol", "volt"}``, e.g.
     :func:`warm_start` of a previous ``aux``.
@@ -232,46 +215,49 @@ def fit_forecast_batch(generator, train_x, train_ys, test_x,
         draw_generator = mesh.seeded(generator, ("asset", "path"))
     device, dtype = train_ys.device, train_ys.dtype
     batch = train_ys.shape[:-1]
-    clock = _StageClock(device)
+    seconds = {}
 
     def start(module, key, init):
-        if init_params is None:
-            return init()
-        return load_jax_params(module, init_params[key], device)
+        with annotate("init"):
+            if init_params is None:
+                return init()
+            return load_jax_params(module, init_params[key], device)
 
     # ---- stage 1: GPCV ----------------------------------------------------
-    yy = scaled_returns(train_x, train_ys)
-    gpcv = GPCVModel(kernel=config.kernel, num_locs=config.num_locs,
-                     q=config.gpcv_q)
-    start(gpcv, "gpcv", lambda: gpcv.init(train_x, yy, per_lane=True))
-    gpcv_losses = _fit_gpcv(gpcv, train_x, yy, config.gpcv_iters,
-                            config.gpcv_lr, config.gpcv_opt)
-    with torch.no_grad():
-        vol = gpcv.predicted_scale()
-    clock.mark("gpcv")
+    with stage("gpcv", seconds, device):
+        yy = scaled_returns(train_x, train_ys)
+        gpcv = GPCVModel(kernel=config.kernel, num_locs=config.num_locs,
+                         q=config.gpcv_q)
+        start(gpcv, "gpcv", lambda: gpcv.init(train_x, yy, per_lane=True))
+        gpcv_losses = _fit_gpcv(gpcv, train_x, yy, config.gpcv_iters,
+                                config.gpcv_lr, config.gpcv_opt)
+        with torch.no_grad(), annotate("scale"):
+            vol = gpcv.predicted_scale()
 
     # ---- stage 2: vol GP (spectral or Kalman MLL) -------------------------
-    log_vol = torch.log(vol)
-    bm = BMGP(kernel=config.kernel)
-    start(bm, "vol", lambda: bm.init(batch, dtype, device))
-    vol_losses = _fit_bmgp(bm, train_x, log_vol, config.vol_iters,
-                           config.vol_lr, config.vol_mll == "spectral")
-    vol_state = bm.fit_state(train_x, log_vol)
-    clock.mark("vol")
+    with stage("vol", seconds, device):
+        log_vol = torch.log(vol)
+        bm = BMGP(kernel=config.kernel)
+        start(bm, "vol", lambda: bm.init(batch, dtype, device))
+        vol_losses = _fit_bmgp(bm, train_x, log_vol, config.vol_iters,
+                               config.vol_lr, config.vol_mll == "spectral")
+        with annotate("fit_state"):
+            vol_state = bm.fit_state(train_x, log_vol)
 
     # ---- stage 3: Volt data model (Kalman MLL) ----------------------------
-    log_y = torch.log(train_ys[..., 1:])
-    volt = VoltGP(mean=make_mean(config.mean_func, k=config.k),
-                  integral_rule=config.integral_rule)
-    start(volt, "volt", lambda: volt.init(batch, dtype, device,
-                                          fit_generator))
-    data_losses = _fit_volt(volt, train_x, log_y, vol, config.data_iters,
-                            config.data_lr)
-    model = volt.fit_state(train_x, log_y, vol, vol_state)
-    clock.mark("data")
+    with stage("data", seconds, device):
+        log_y = torch.log(train_ys[..., 1:])
+        volt = VoltGP(mean=make_mean(config.mean_func, k=config.k),
+                      integral_rule=config.integral_rule)
+        start(volt, "volt", lambda: volt.init(batch, dtype, device,
+                                              fit_generator))
+        data_losses = _fit_volt(volt, train_x, log_y, vol,
+                                config.data_iters, config.data_lr)
+        with annotate("fit_state"):
+            model = volt.fit_state(train_x, log_y, vol, vol_state)
 
     # ---- stage 4: Monte-Carlo rollout -------------------------------------
-    with torch.no_grad():
+    with stage("rollout", seconds, device), torch.no_grad():
         use_theta = config.theta is not None
         latent_mean = (torch.mean(torch.log(train_ys), dim=-1) if use_theta
                        else torch.zeros((), dtype=dtype, device=device))
@@ -282,31 +268,37 @@ def fit_forecast_batch(generator, train_x, train_ys, test_x,
             vol_noise = (noise["vol_r0"], noise["vol_z"])
         else:  # the dense sampler's normals, (S, B, H)
             vol_noise = noise["vol_z"].movedim(-2, 0)
-        pred_vol = sample_vol_paths(vol_state, test_x, nsample,
-                                    draw_generator, vol_noise,
-                                    assume_future=True)
-        zs = (torch.randn(*batch, nsample, h, dtype=dtype, device=device,
-                          generator=draw_generator) if noise is None
-              else noise["zs"])
-        samples = _rollout_volt_scan(model, latent_mean, test_x, pred_vol,
-                                     zs, use_theta,
-                                     config.theta if use_theta else 0.0)
-        if config.output == "quantiles" and mesh is not None:
-            samples = mesh.gather(samples, (None, "path"))
-        # per-asset failure flag: a diverged asset stays in its own lanes
-        bad = ~torch.all(torch.isfinite(samples).flatten(-2), dim=-1)
-        if config.output == "samples" and mesh is not None:
-            bad = mesh.all_reduce(bad.to(dtype), "path") > 0
-        ok = (~bad & torch.isfinite(gpcv_losses[-1])
-              & torch.isfinite(vol_losses[-1])
-              & torch.isfinite(data_losses[-1]))
-        if config.output == "quantiles":
-            levels = torch.tensor(config.quantile_levels, dtype=dtype,
-                                  device=device)
-            out = torch.quantile(samples, levels, dim=-2).movedim(0, -2)
-        else:
-            out = samples
-    clock.mark("rollout")
+        with annotate("sample_vol"):
+            pred_vol = sample_vol_paths(vol_state, test_x, nsample,
+                                        draw_generator, vol_noise,
+                                        assume_future=True)
+        with annotate("scan"):
+            zs = (torch.randn(*batch, nsample, h, dtype=dtype,
+                              device=device, generator=draw_generator)
+                  if noise is None else noise["zs"])
+            samples = _rollout_volt_scan(model, latent_mean, test_x,
+                                         pred_vol, zs, use_theta,
+                                         config.theta if use_theta else 0.0)
+        with annotate("fan"):
+            if config.output == "quantiles" and mesh is not None:
+                samples = mesh.gather(samples, (None, "path"))
+            # per-asset failure flag: a diverged asset stays in its lanes
+            bad = ~torch.all(torch.isfinite(samples).flatten(-2), dim=-1)
+            if config.output == "samples" and mesh is not None:
+                bad = mesh.all_reduce(bad.to(dtype), "path") > 0
+            ok = (~bad & torch.isfinite(gpcv_losses[-1])
+                  & torch.isfinite(vol_losses[-1])
+                  & torch.isfinite(data_losses[-1]))
+            if config.output == "quantiles":
+                with annotate("sync:levels"):
+                    levels = torch.tensor(config.quantile_levels,
+                                          dtype=dtype, device=device)
+                out = torch.quantile(samples, levels,
+                                     dim=-2).movedim(0, -2)
+                mean = torch.mean(samples, dim=-2)
+                std = torch.std(samples, dim=-2, correction=0)
+            else:
+                out = samples
 
     aux = {
         "ok": ok,
@@ -320,11 +312,10 @@ def fit_forecast_batch(generator, train_x, train_ys, test_x,
         "volt_params": params_tree(volt),
         "vol_params": params_tree(bm),
         "gpcv_params": params_tree(gpcv),
-        "stage_seconds": clock.seconds,
+        "stage_seconds": seconds,
     }
     if config.output == "quantiles":
-        aux["forecast_mean"] = torch.mean(samples, dim=-2)
-        aux["forecast_std"] = torch.std(samples, dim=-2, correction=0)
+        aux["forecast_mean"], aux["forecast_std"] = mean, std
     return out, aux
 
 
@@ -356,6 +347,7 @@ def _shift_tail(a, shift: int):
     return torch.cat([a[..., shift:], pad], dim=-1)
 
 
+@annotated("warm_start")
 def warm_start(aux, shift: int = 0, n: int | None = None):
     """``init_params`` for :func:`fit_forecast_batch` from a previous fit's
     ``aux``.

@@ -37,8 +37,9 @@ from ..models.volt import VoltGP, VoltState, make_mean
 from ..rollouts import _rollout_volt_scan
 from ..train import (_fit_multitask_vol, _fit_volt, _multitask_gpcv,
                      _multitask_scale, adam_loop, scaled_returns)
-from .pipeline import (_StageClock, _check_min_length, _check_spectral_grid,
-                       _local_paths, _shard_rows, _shift_tail)
+from ..utils.profiling import annotate, annotated, stage
+from .pipeline import (_check_min_length, _check_spectral_grid, _local_paths,
+                       _shard_rows, _shift_tail)
 
 __all__ = ["MultitaskPipelineConfig", "fit_forecast_multitask",
            "warm_start_multitask"]
@@ -81,6 +82,7 @@ def _check_config(config: MultitaskPipelineConfig):
                              f"of {values}, got {getattr(config, field)!r}")
 
 
+@annotated("call")
 def fit_forecast_multitask(generator, train_x, train_ys, test_x,
                            config: MultitaskPipelineConfig, init_params=None,
                            noise=None, mesh=None):
@@ -99,7 +101,8 @@ def fit_forecast_multitask(generator, train_x, train_ys, test_x,
     ``ok``, the vol paths ``vols (T, n)``, the final and per-step losses,
     the fitted parameters as nested dicts (the JAX layout:
     ``gpcv_params = {"model", "lik"}``, ``vol_params``, ``volt_params``
-    with the task axis) and ``stage_seconds``.
+    with the task axis) and ``stage_seconds`` (as
+    :func:`~volt_tpu_torch.parallel.fit_forecast_batch` times them).
 
     ``init_params``: ``{"gpcv", "vol", "volt"}``, e.g.
     :func:`warm_start_multitask` of a previous ``aux``.
@@ -122,7 +125,7 @@ def fit_forecast_multitask(generator, train_x, train_ys, test_x,
     _check_spectral_grid(train_x, config)
     device, dtype = train_ys.device, train_ys.dtype
     num_tasks = train_ys.shape[0]
-    clock = _StageClock(device)
+    seconds = {}
     nsample, draw_generator = config.nsample, generator
     if mesh is not None:
         nsample = _local_paths(mesh, config.nsample)
@@ -130,91 +133,105 @@ def fit_forecast_multitask(generator, train_x, train_ys, test_x,
         generator = mesh.seeded(generator, ())
 
     # ---- stage 1: joint (Kronecker) GPCV over all T tasks ------------------
-    yy = scaled_returns(train_x, train_ys).T  # (n, T)
-    packed = _multitask_gpcv(train_x, yy, config.rank, config.gpcv_q,
-                             config.gpcv_param, generator,
-                             None if init_params is None
-                             else init_params["gpcv"])
-    gpcv_losses = adam_loop(
-        packed, lambda: -packed.model.elbo(train_x, yy, packed.lik,
-                                           num_locs=config.num_locs),
-        config.gpcv_iters, config.gpcv_lr)
-    vols = _multitask_scale(packed)  # (T, n)
-    clock.mark("gpcv")
+    with stage("gpcv", seconds, device):
+        yy = scaled_returns(train_x, train_ys).T  # (n, T)
+        with annotate("init"):
+            packed = _multitask_gpcv(train_x, yy, config.rank,
+                                     config.gpcv_q, config.gpcv_param,
+                                     generator, None if init_params is None
+                                     else init_params["gpcv"])
+        gpcv_losses = adam_loop(
+            packed, lambda: -packed.model.elbo(train_x, yy, packed.lik,
+                                               num_locs=config.num_locs),
+            config.gpcv_iters, config.gpcv_lr)
+        with annotate("scale"):
+            vols = _multitask_scale(packed)  # (T, n)
 
     # ---- stage 2: the multitask vol GP ------------------------------------
-    mt_vol = MultitaskBMGP(num_tasks=num_tasks, rank=config.rank)
-    if init_params is None:
-        mt_vol.init(dtype, device, generator)
-    else:
-        load_jax_params(mt_vol, init_params["vol"], device)
-    log_vols_nt = torch.log(vols).T  # (n, T)
-    vol_losses = _fit_multitask_vol(mt_vol, train_x, log_vols_nt,
-                                    config.vol_iters, config.vol_lr,
-                                    config.vol_mll == "spectral")
-    mt_state = mt_vol.fit_state(train_x, log_vols_nt)
-    clock.mark("vol")
+    with stage("vol", seconds, device):
+        mt_vol = MultitaskBMGP(num_tasks=num_tasks, rank=config.rank)
+        with annotate("init"):
+            if init_params is None:
+                mt_vol.init(dtype, device, generator)
+            else:
+                load_jax_params(mt_vol, init_params["vol"], device)
+        log_vols_nt = torch.log(vols).T  # (n, T)
+        vol_losses = _fit_multitask_vol(mt_vol, train_x, log_vols_nt,
+                                        config.vol_iters, config.vol_lr,
+                                        config.vol_mll == "spectral")
+        with annotate("fit_state"):
+            mt_state = mt_vol.fit_state(train_x, log_vols_nt)
 
     # ---- stage 3: per-task Volt data models (Kalman MLL) -------------------
-    volt = VoltGP(mean=make_mean(
-        config.mean_func, k=config.k,
-        theta=config.theta if config.theta is not None else 0.5),
-        integral_rule=config.integral_rule)
-    volt.init((num_tasks,), dtype, device, generator)
-    if mesh is not None:  # the rank's tasks of the whole init
-        load_jax_params(volt, _shard_rows(mesh, params_tree(volt),
-                                          num_tasks), device)
-        train_ys, vols = (mesh.shard(a, ("asset",)) for a in (train_ys,
-                                                              vols))
-    if init_params is not None:
-        load_jax_params(volt, init_params["volt"] if mesh is None else
-                        _shard_rows(mesh, init_params["volt"], num_tasks),
-                        device)
-    log_ys = torch.log(train_ys[..., 1:])  # (tasks, n)
-    data_losses = _fit_volt(volt, train_x, log_ys, vols, config.data_iters,
-                            config.data_lr)
-    clock.mark("data")
+    with stage("data", seconds, device):
+        volt = VoltGP(mean=make_mean(
+            config.mean_func, k=config.k,
+            theta=config.theta if config.theta is not None else 0.5),
+            integral_rule=config.integral_rule)
+        with annotate("init"):
+            volt.init((num_tasks,), dtype, device, generator)
+            if mesh is not None:  # the rank's tasks of the whole init
+                load_jax_params(volt, _shard_rows(mesh, params_tree(volt),
+                                                  num_tasks), device)
+            if init_params is not None:
+                load_jax_params(volt, init_params["volt"] if mesh is None
+                                else _shard_rows(mesh, init_params["volt"],
+                                                 num_tasks), device)
+        if mesh is not None:
+            train_ys, vols = (mesh.shard(a, ("asset",))
+                              for a in (train_ys, vols))
+        log_ys = torch.log(train_ys[..., 1:])  # (tasks, n)
+        data_losses = _fit_volt(volt, train_x, log_ys, vols,
+                                config.data_iters, config.data_lr)
 
     # ---- stage 4: correlated vol forecast + per-task Markov rollouts -------
-    with torch.no_grad():
+    with stage("rollout", seconds, device), torch.no_grad():
         h = test_x.shape[-1]
-        # every task's and every path's draws, alike on every rank
-        log_vol_draws = mt_state.sample_forecast(
-            test_x, config.nsample, generator,
-            None if noise is None else (noise["vol_z"], noise["vol_eps"]))
-        pred_vol = torch.exp(log_vol_draws.movedim(-1, 0))  # (T, S, H)
-        if mesh is not None:
-            pred_vol = mesh.shard(pred_vol, ("asset", "path"))
-        if noise is None:
-            zs = torch.randn(len(train_ys), nsample, h, dtype=dtype,
-                             device=device, generator=draw_generator)
-        else:
-            zs = (noise["zs"] if mesh is None
-                  else mesh.shard(noise["zs"], ("asset", "path")))
-        use_theta = config.theta is not None
-        latent = (torch.mean(torch.log(train_ys), dim=-1) if use_theta
-                  else torch.zeros(len(train_ys), dtype=dtype,
-                                   device=device))
-        volt_state = VoltState(module=volt, train_x=train_x, train_y=log_ys,
-                               log_vol_path=torch.log(vols))
-        samples = _rollout_volt_scan(volt_state, latent, test_x, pred_vol,
-                                     zs, use_theta,
-                                     config.theta if use_theta else 0.0)
-        if config.output == "quantiles" and mesh is not None:
-            samples = mesh.gather(samples, (None, "path"))
-        bad = ~torch.all(torch.isfinite(samples).flatten(-2), dim=-1)
-        if config.output == "samples" and mesh is not None:
-            bad = mesh.all_reduce(bad.to(dtype), "path") > 0
-        ok = (~bad & torch.isfinite(data_losses[-1])
-              & torch.isfinite(gpcv_losses[-1])
-              & torch.isfinite(vol_losses[-1]))
-        if config.output == "quantiles":
-            levels = torch.tensor(config.quantile_levels, dtype=dtype,
-                                  device=device)
-            out = torch.quantile(samples, levels, dim=-2).movedim(0, -2)
-        else:
-            out = samples
-    clock.mark("rollout")
+        with annotate("sample_vol"):
+            # every task's and every path's draws, alike on every rank
+            log_vol_draws = mt_state.sample_forecast(
+                test_x, config.nsample, generator,
+                None if noise is None else (noise["vol_z"],
+                                            noise["vol_eps"]))
+            pred_vol = torch.exp(log_vol_draws.movedim(-1, 0))  # (T, S, H)
+            if mesh is not None:
+                pred_vol = mesh.shard(pred_vol, ("asset", "path"))
+        with annotate("scan"):
+            if noise is None:
+                zs = torch.randn(len(train_ys), nsample, h, dtype=dtype,
+                                 device=device, generator=draw_generator)
+            else:
+                zs = (noise["zs"] if mesh is None
+                      else mesh.shard(noise["zs"], ("asset", "path")))
+            use_theta = config.theta is not None
+            latent = (torch.mean(torch.log(train_ys), dim=-1) if use_theta
+                      else torch.zeros(len(train_ys), dtype=dtype,
+                                       device=device))
+            volt_state = VoltState(module=volt, train_x=train_x,
+                                   train_y=log_ys,
+                                   log_vol_path=torch.log(vols))
+            samples = _rollout_volt_scan(volt_state, latent, test_x,
+                                         pred_vol, zs, use_theta,
+                                         config.theta if use_theta else 0.0)
+        with annotate("fan"):
+            if config.output == "quantiles" and mesh is not None:
+                samples = mesh.gather(samples, (None, "path"))
+            bad = ~torch.all(torch.isfinite(samples).flatten(-2), dim=-1)
+            if config.output == "samples" and mesh is not None:
+                bad = mesh.all_reduce(bad.to(dtype), "path") > 0
+            ok = (~bad & torch.isfinite(data_losses[-1])
+                  & torch.isfinite(gpcv_losses[-1])
+                  & torch.isfinite(vol_losses[-1]))
+            if config.output == "quantiles":
+                with annotate("sync:levels"):
+                    levels = torch.tensor(config.quantile_levels,
+                                          dtype=dtype, device=device)
+                out = torch.quantile(samples, levels,
+                                     dim=-2).movedim(0, -2)
+                mean = torch.mean(samples, dim=-2)
+                std = torch.std(samples, dim=-2, correction=0)
+            else:
+                out = samples
 
     aux = {
         "ok": ok,
@@ -228,14 +245,14 @@ def fit_forecast_multitask(generator, train_x, train_ys, test_x,
         "gpcv_params": params_tree(packed),
         "vol_params": params_tree(mt_vol),
         "volt_params": params_tree(volt),
-        "stage_seconds": clock.seconds,
+        "stage_seconds": seconds,
     }
     if config.output == "quantiles":
-        aux["forecast_mean"] = torch.mean(samples, dim=-2)
-        aux["forecast_std"] = torch.std(samples, dim=-2, correction=0)
+        aux["forecast_mean"], aux["forecast_std"] = mean, std
     return out, aux
 
 
+@annotated("warm_start")
 def warm_start_multitask(aux, shift: int = 0, n: int | None = None):
     """``init_params`` for :func:`fit_forecast_multitask` from a previous
     fit's ``aux``.  ``shift=0`` re-seeds the same window; ``shift>0``

@@ -28,6 +28,7 @@ from .means import MeanRevertingEMAMean
 from .models.volt import VoltState
 from .ops.chol import psd_safe_cholesky, solve_lower_triangular
 from .ops.mvn import conditional, sample_mvn
+from .utils.profiling import annotate
 
 __all__ = [
     "sample_vol_paths",
@@ -48,7 +49,8 @@ __all__ = [
 def _strictly_future(test_x, train_x) -> bool:
     """Host-side check of the forecast contract: ``test_x`` increasing and
     strictly after the train grid."""
-    tx, tr = test_x.detach().cpu(), train_x.detach().cpu()
+    with annotate("sync:future"):
+        tx, tr = test_x.detach().cpu(), train_x.detach().cpu()
     return bool(torch.all(torch.diff(tx, dim=-1) > 0)
                 and torch.all(tx[..., 0] > tr[..., -1]))
 

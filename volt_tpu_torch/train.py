@@ -44,6 +44,7 @@ from .models.multitask import MultitaskBMGP, MultitaskVariationalGP
 from .models.volt import VoltGP, VoltState, make_mean
 from .ops.tridiag import brownian_noise_mll_kalman
 from .optim import Adam
+from .utils.profiling import annotate
 
 __all__ = [
     "scaled_returns",
@@ -88,15 +89,22 @@ def adam_loop(module, loss_fn, iters: int, lr: float):
     arithmetic, :class:`volt_tpu_torch.optim.Adam`).  Every op of the
     losses is per asset, so a non-finite asset leaves the others
     untouched.
+
+    Each step is an ``adam_step`` span of ``forward`` (``loss_fn()``),
+    ``backward`` and ``update`` (``opt.step()``).
     """
     opt = Adam(module.parameters(), lr, iters)
     losses = []
     for _ in range(iters):
-        opt.zero_grad()
-        loss = loss_fn()
-        loss.sum().backward()
-        opt.step()
-        losses.append(loss.detach())
+        with annotate("adam_step"):
+            opt.zero_grad()
+            with annotate("forward"):
+                loss = loss_fn()
+            with annotate("backward"):
+                loss.sum().backward()
+            with annotate("update"):
+                opt.step()
+            losses.append(loss.detach())
     if not losses:
         with torch.no_grad():
             loss = loss_fn()
@@ -260,7 +268,8 @@ def learn_gpcv_multitask(train_x, train_ys, train_iters: int = 1000,
 def _is_equispaced(x) -> bool:
     """Uniform grid within ``max(1e-3 relative, 4 eps_f32 max|x|)``; grids
     of fewer than 3 points do not count."""
-    xv = np.asarray(x.detach().cpu() if torch.is_tensor(x) else x)
+    with annotate("sync:equispaced"):
+        xv = np.asarray(x.detach().cpu() if torch.is_tensor(x) else x)
     if xv.ndim != 1 or xv.shape[0] < 3:
         return False
     d = np.diff(np.asarray(xv, np.float64))
@@ -279,7 +288,8 @@ def _fit_bmgp(module: BMGP, train_x, log_vol, iters: int, lr: float,
         return adam_loop(module, lambda: -module.mll(train_x, log_vol),
                          iters, lr)
     if spectral:
-        cache = module.spectral_cache(train_x, log_vol)
+        with annotate("spectral_cache"):
+            cache = module.spectral_cache(train_x, log_vol)
         return adam_loop(module, lambda: -module.mll_spectral(cache), iters,
                          lr)
     return adam_loop(module, lambda: -module.mll_kalman(train_x, log_vol),
@@ -317,9 +327,11 @@ def _fit_volt(volt: VoltGP, train_x, log_y, vol, iters: int, lr: float):
     """Adam on the Kalman MLL of the Volt data model.  A history mean is
     parameter-free in its train values, so it is computed once outside the
     loss."""
-    v_integral = volt.kernel.integral(train_x, vol)
+    with annotate("integral"):
+        v_integral = volt.kernel.integral(train_x, vol)
     if volt.mean.is_history_dependent:
-        resid = log_y - volt.train_mean(train_x, log_y)
+        with annotate("train_mean"):
+            resid = log_y - volt.train_mean(train_x, log_y)
 
         def data_loss():
             noise = volt.likelihood.noise()[..., 0]
@@ -426,7 +438,8 @@ def _fit_multitask_vol(mt: MultitaskBMGP, train_x, log_vols_nt, iters: int,
     ``eigh`` of each factor a step."""
     if spectral:
         n, t = log_vols_nt.shape
-        cache = mt.spectral_cache(train_x, log_vols_nt)
+        with annotate("spectral_cache"):
+            cache = mt.spectral_cache(train_x, log_vols_nt)
         return adam_loop(mt, lambda: -mt.mll_spectral(cache, n, t), iters,
                          lr)
     return adam_loop(mt, lambda: -mt.mll(train_x, log_vols_nt), iters, lr)

@@ -2,8 +2,9 @@
 
 from .checkpoint import (restore_pytree, restore_volt_state, save_pytree,
                          save_volt_state)
-from .profiling import annotate, timed, timed_best, timed_cold_best, trace
+from .profiling import (annotate, recording, spans, timed, timed_best,
+                        timed_cold_best, trace)
 
 __all__ = ["save_pytree", "restore_pytree", "save_volt_state",
-           "restore_volt_state", "annotate", "trace", "timed", "timed_best",
-           "timed_cold_best"]
+           "restore_volt_state", "annotate", "recording", "spans", "trace",
+           "timed", "timed_best", "timed_cold_best"]
