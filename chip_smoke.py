@@ -46,7 +46,12 @@ Phases, each printed with its time; any failure exits non-zero:
    node sum, which cancels to a value proportional to sd:
    ``ops.gh_ell.var_grad_resolution``; timed at (64, 999) and (500, 999),
    forward, backward and the two together, and the forward at each node
-   split);
+   split); G1 (the tridiagonal GPCV ELBO and its gradient in one launch,
+   float64 inside: against the plain composition in float64 on the same
+   float32 values at (64, 999), (505, 999) and (3, 37), each within 1e-5
+   of its largest value; timed at (64, 999) and (505, 999), with and
+   without the gradient, the plain composition's forward and backward
+   beside);
 4. the main path at full width: ``fit_forecast_batch`` on 64 SABR series
    of 999 returns with the ``PipelineConfig`` defaults (300/300/300 Adam
    steps, EWMA k=300, 1000 paths x 100 steps, quantile fan), then once
@@ -234,8 +239,9 @@ runs the named phases (``PHASES``: ``kernel_times``, ``kalman_times``,
 ``main_path``, ``fixed_cov`` (which runs the main path first when this
 process has not), ``gpcv_full``, ``gpcv_cv``, ``gpcv_sparse``,
 ``option_pricing``, ``fbm_path``, ``multitask``, ``long_main_path``,
-``baselines``, ``mesh``, ``evaluation``, ``timing``; a phase named
-twice runs twice, the first cold) in
+``baselines``, ``mesh``, ``evaluation``, ``timing``,
+``gpcv_elbo_times`` (G1, in a tree that has it); a phase named twice
+runs twice, the first cold) in
 four fresh processes, in the trees parent, this one, this one, parent,
 each with its own package and kernels and this file's phases and
 timers.  It prints one JSON line per process and writes the
@@ -872,6 +878,115 @@ def time_gh_ell(torch, shapes=((64, 999), (500, 999))):
     out = tgh._gh_ell_plain(*ins, 75)
     times[str(shapes[0])]["plain_backward_ms"] = cuda_ms(
         torch, lambda: torch.autograd.grad(out, ins, cot, retain_graph=True))
+    return times
+
+
+G1_SHAPES = ((64, 999), (505, 999), (3, 37))
+
+
+def g1_inputs(torch, g, b, n):
+    """G1's inputs as the main path gives them: a tridiagonal GPCV model at
+    its Laplace init on returns of a drifting scale, on the grid from 0;
+    ``(model, x, y)``."""
+    from volt_tpu_torch.models import GPCVModel
+
+    x = torch.arange(n, device="cuda", dtype=torch.float32) / 252.0
+    scale = 0.2 * torch.exp(0.05 * torch.cumsum(
+        torch.randn(b, n, device="cuda", generator=g), dim=-1))
+    y = scale * torch.randn(b, n, device="cuda", generator=g)
+    return GPCVModel(q="tridiag").init(x, y), x, y
+
+
+def g1_args(model, x, y):
+    """The kernel's tensors: the grid, the returns and the parameters."""
+    return (x, y, model.variational_mean.detach(), model.q_log_d.detach(),
+            model.q_e.detach(), model.mean.constant.detach(),
+            model.kernel.vol().detach())
+
+
+def tridiag_elbo_plain(torch, x, y, m, q_log_d, q_e, c, vol):
+    """The plain composition that ``GPCVModel.elbo`` runs off the card."""
+    from volt_tpu_torch.ops.bidiag import (takahashi_band,
+                                           tridiag_q_kl_bm_prior)
+
+    d = torch.exp(q_log_d)
+    var, _ = takahashi_band(d, q_e)
+    kl = tridiag_q_kl_bm_prior(x, vol, m, d, q_e, c.expand(m.shape))
+    e = torch.exp(torch.clamp(-2.0 * m + 2.0 * var, max=80.0))
+    ell = -0.5 * y * y * e - m - 0.5 * math.log(2.0 * math.pi)
+    return torch.mean(ell, dim=-1) - kl / y.shape[-1]
+
+
+def check_gpcv_elbo(torch):
+    """G1 against the plain composition in float64 on the same float32
+    values: the ELBO and its five gradients, each over its largest float64
+    value, at the shapes of ``G1_SHAPES``."""
+    from volt_tpu_torch.ops import gpcv_elbo as tge
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    worst = 0.0
+    for b, n in G1_SHAPES:
+        args = g1_args(*g1_inputs(torch, g, b, n))
+        cot = torch.randn(b, device="cuda", generator=g)
+        out, grads = tge.tridiag_elbo_cuda(*args, grad=True)
+        ins = [t.double().requires_grad_() for t in args[2:]]
+        want = tridiag_elbo_plain(torch, args[0].double(), args[1].double(),
+                                  *ins)
+        wgrads = torch.autograd.grad((want * cot.double()).sum(), ins)
+        errs = {"elbo": (out.double() - want).abs().max().item()
+                / want.abs().max().item()}
+        for name, a, w in zip(("m", "q_log_d", "q_e", "c", "vol"), grads,
+                              wgrads):
+            errs[name] = ((cot[:, None] * a).double() - w).abs().max().item() \
+                / w.abs().max().item()
+        print(f"   G1 ({b}, {n}): worst error over the largest float64 "
+              f"value: " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+        if not max(errs.values()) <= 1e-5:
+            fail(f"G1 disagrees with the float64 composition at ({b}, {n})")
+        worst = max(worst, *errs.values())
+    times = time_gpcv_elbo(torch)
+    main = times["(64, 999)"]
+    return {"name": "gpcv_tridiag_elbo", "route": "cuda",
+            "source": "volt_tpu_torch/csrc/gpcv_elbo.cu",
+            "replaces": "none: the composition in GPCVModel.elbo",
+            "symbol": "volt_gpcv_tridiag_elbo", "max_rel_err": worst,
+            **main["grad"], "plain_ms": main["plain_ms"],
+            "library_ms": None, "library_device_ms": None,
+            "by_shape": times}
+
+
+def time_gpcv_elbo(torch, shapes=G1_SHAPES[:2]):
+    """G1 per call and on the device alone, with the gradient (a GPCV Adam
+    step's launch) and without; the plain composition's forward and
+    backward per call beside."""
+    from volt_tpu_torch.ops import gpcv_elbo as tge
+
+    g = torch.Generator(device="cuda").manual_seed(12)
+    times = {}
+    for b, n in shapes:
+        args = g1_args(*g1_inputs(torch, g, b, n))
+        ways = {"grad": lambda *a: tge.tridiag_elbo_cuda(*a, grad=True),
+                "no_grad": tge.tridiag_elbo_cuda}
+        rec = {way: {"ms": cuda_ms(torch, lambda: fn(*args)),
+                     "device_ms": device_ms(torch, fn, *args)}
+               for way, fn in ways.items()}
+        # bytes: x, y, m, q_log_d, q_e, c and vol read once; the ELBO and,
+        # with the gradient, the five gradients written once (its float64
+        # workspace stays in L2); the float64 arithmetic, some tens of
+        # operations a step, bounds it below the bytes
+        rec["grad"].update(bound_ms(4 * (n + 7 * b * n + 5 * b), 0,
+                                    FP64_OPS_PER_S))
+        rec["no_grad"].update(bound_ms(4 * (n + 4 * b * n + 3 * b), 0,
+                                       FP64_OPS_PER_S))
+        ins = [t.clone().requires_grad_() for t in args[2:]]
+        rec["plain_ms"] = cuda_ms(torch, lambda: torch.autograd.grad(
+            tridiag_elbo_plain(torch, *args[:2], *ins).sum(), ins))
+        times[str((b, n))] = rec
+        print(f"   G1 ({b}, {n}): " + "; ".join(
+            f"{way} {r['ms']:.4f} ms a call, {r['device_ms']:.4f} ms on the "
+            f"device (bound {r['bound_ms']:.4f} ms)"
+            for way, r in rec.items() if way != "plain_ms")
+            + f"; plain forward and backward {rec['plain_ms']:.4f} ms a call")
     return times
 
 
@@ -2859,14 +2974,16 @@ def smoke():
         fwd_err, bwd_err = check_kalman(torch, refs)
     s1 = time_kalman(torch, vt)
     s1[0]["max_abs_err"], s1[1]["max_abs_err"] = fwd_err, bwd_err
-    kernels = [k1, *s1, check_volt_cov(torch), *check_gh_ell(torch)]
+    kernels = [k1, *s1, check_volt_cov(torch), *check_gh_ell(torch),
+               check_gpcv_elbo(torch)]
     done(t0)
 
     t0 = phase("main path: fit_forecast_batch, B=64, n=999, defaults")
     launches, main_path = run_main_path(torch, vt, native)
     paths = {"ewma_filter": ("fit_forecast_batch", launches),
              "kalman_forward": ("fit_forecast_batch", launches),
-             "kalman_backward": ("fit_forecast_batch", launches)}
+             "kalman_backward": ("fit_forecast_batch", launches),
+             "gpcv_tridiag_elbo": ("fit_forecast_batch", launches)}
     done(t0)
 
     t0 = phase("reference API: Volt.Train / Forecast, dense MLL and rollout")
@@ -2988,6 +3105,7 @@ PHASES = {
     "kalman_times": lambda torch, vt, native: time_kalman(torch, vt),
     "kernel_times": lambda torch, vt, native: {"ewma": time_ewma(torch),
                                                "gh_ell": time_gh_ell(torch)},
+    "gpcv_elbo_times": lambda torch, vt, native: time_gpcv_elbo(torch),
     "main_path": lambda torch, vt, native: run_main_path(torch, vt,
                                                          native)[1],
     "fixed_cov": lambda torch, vt, native: run_fixed_cov(torch, vt,

@@ -20,6 +20,7 @@ ttd = importlib.import_module("volt_tpu_torch.ops.tridiag")
 tvc = importlib.import_module("volt_tpu_torch.ops.volt_cov")
 tgh = importlib.import_module("volt_tpu_torch.ops.gh_ell")
 tvi = importlib.import_module("volt_tpu_torch.ops.volint")
+tge = importlib.import_module("volt_tpu_torch.ops.gpcv_elbo")
 
 pytestmark = pytest.mark.cuda
 
@@ -223,6 +224,191 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         tvc.volt_covariance_cuda(torch.zeros(5, device="cuda"))
     with pytest.raises(ValueError):
         tgh.gh_ell_forward_cuda(z, z, torch.zeros(2, 4, device="cuda"))
+
+
+# --- G1: the tridiagonal GPCV ELBO and its gradient ------------------------
+
+G1 = "volt_gpcv_tridiag_elbo"
+
+
+def _g1_model(gen, batch, n, grid):
+    """A tridiagonal GPCV model on the card, its grid and its returns: the
+    Laplace init on returns of a drifting scale (n >= 11; below, parameters
+    of the same sizes), every parameter then moved off it at random.  The
+    grid: ``"zero"`` (shared, from 0: the jitter floor is taken at the
+    first step), ``"dt"`` (shared, from one step) or ``"per_asset"`` (a
+    step of its own per asset, from 0 for every other asset)."""
+    from volt_tpu_torch.models import GPCVModel
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+
+    dt = 1.0 / 252
+    steps = torch.arange(n, device="cuda", dtype=torch.float32)
+    if grid == "per_asset":
+        dts = dt * (1.0 + 0.2 * torch.rand(*batch, 1, device="cuda",
+                                           generator=gen))
+        start = dts * (torch.arange(dts.numel(), device="cuda") % 2).reshape(
+            dts.shape)
+        x = steps * dts + start
+    else:
+        x = steps * dt + (dt if grid == "dt" else 0.0)
+    scale = 0.2 * torch.exp(0.05 * torch.cumsum(randn(*batch, n), dim=-1))
+    y = scale * randn(*batch, n)
+    model = GPCVModel(q="tridiag")
+    if n >= 11:
+        model.init(x, y)
+    else:
+        model.kernel.init(batch, torch.float32, "cuda")
+        model._set(-1.6 + 0.1 * randn(*batch), -1.6 + 0.1 * randn(*batch, n),
+                   q_log_d=5.0 + 0.3 * randn(*batch, n),
+                   q_e=-100.0 * (1.0 + 0.1 * randn(*batch, n - 1)))
+    with torch.no_grad():
+        for p in model.parameters():
+            p.mul_(1.0 + 0.05 * randn(*p.shape))
+    return model, x, y
+
+
+def _g1_against_float64(gen, model, x, y):
+    """``model.elbo`` (G1) and its gradients for a random cotangent, and the
+    worst distance of each from a float64 copy's plain path, over the
+    largest value of the float64 one (for a gradient, at least a thousandth
+    of the largest entry of any parameter's: at n = 1 from x = 0 the vol
+    gradient's terms cancel to 0)."""
+    import copy
+
+    ref = copy.deepcopy(model).double()
+    cot = torch.randn(y.shape[:-1], device="cuda", generator=gen)
+    before = native.launches[G1]
+    got = model.elbo(x, y)
+    (got * cot).sum().backward()
+    assert native.launches[G1] == before + 1
+    want = ref.elbo(x.double(), y.double())
+    (want * cot.double()).sum().backward()
+    assert native.launches[G1] == before + 1
+    pairs = {"elbo": (got.detach(), want.detach())}
+    on_ref = dict(ref.named_parameters())
+    for name, p in model.named_parameters():
+        pairs[name] = (p.grad, on_ref[name].grad)
+    for name, (a, b) in pairs.items():
+        assert bool(torch.isfinite(a).all()), name
+    pairs = {k: v for k, v in pairs.items() if v[1].numel()}  # q_e at n=1
+    floor = 1e-3 * max(b.abs().max().item() for name, (_, b) in pairs.items()
+                       if name != "elbo")
+    return {name: (a.double() - b).abs().max().item()
+            / max(b.abs().max().item(), 0.0 if name == "elbo" else floor)
+            for name, (a, b) in pairs.items()}
+
+
+@pytest.mark.parametrize("grid", ["zero", "dt", "per_asset"])
+@pytest.mark.parametrize("shape", [(505, 999), (64, 999), (3, 1), (3, 2),
+                                   (5, 33), (2, 3, 37), (4, 2100)])
+def test_gpcv_elbo_kernel_matches_float64(cuda, shape, grid):
+    """G1's ELBO and each parameter's gradient (``raw_vol`` through the
+    sigmoid, in autograd) against the plain composition in float64 on the
+    same float32 values, in one launch: each within 1e-5 of the largest
+    float64 value (``_g1_against_float64``; measured on an H100 80GB HBM3:
+    at most 1.6e-7 over these cases, the float32 rounding of the
+    outputs)."""
+    model, x, y = _g1_model(cuda, shape[:-1], shape[-1], grid)
+    errs = _g1_against_float64(cuda, model, x, y)
+    print(f"G1 {shape} {grid}: worst error over the largest value "
+          + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+    assert max(errs.values()) <= 1e-5, errs
+
+
+def test_gpcv_elbo_kernel_nan_stays_in_its_row(cuda):
+    """A NaN in one asset's returns leaves every other asset's ELBO and
+    gradients bitwise as they are without it."""
+    model, x, y = _g1_model(cuda, (64,), 999, "zero")
+    runs = []
+    for bad in (False, True):
+        yy = y.clone()
+        if bad:
+            yy[5, 100] = float("nan")
+        model.zero_grad()
+        out = model.elbo(x, yy)
+        out.sum().backward()
+        runs.append([out.detach()] + [p.grad.clone()
+                                      for p in model.parameters()])
+    others = torch.arange(64, device="cuda") != 5
+    for a, b in zip(*runs):
+        assert torch.equal(a[others], b[others])
+    assert bool(torch.isnan(runs[1][0][5]))
+
+
+def test_gpcv_elbo_kernel_one_launch_an_adam_step(cuda):
+    """A 30-step warm fit (the live tick's GPCV) launches G1 30 times,
+    once a step, and nothing of it when no gradient is wanted."""
+    from volt_tpu_torch.train import adam_loop
+
+    model, x, y = _g1_model(cuda, (64,), 999, "zero")
+    before = native.launches[G1]
+    losses = adam_loop(model, lambda: -model.elbo(x, y), 30, 0.01)
+    assert native.launches[G1] == before + 30
+    assert bool(torch.isfinite(losses).all())
+    with torch.no_grad():
+        again = model.elbo(x, y)
+    assert native.launches[G1] == before + 31
+    assert not again.requires_grad
+
+
+@pytest.mark.parametrize("kw", [{"q": "full"}, {"ell_method": "quadrature"},
+                                {"param": "cv"}])
+def test_gpcv_elbo_kernel_bypassed(cuda, kw):
+    """The dense family, the GH term and the cv likelihood keep the plain
+    path on the card: no G1 launch."""
+    from volt_tpu_torch.models import GPCVModel
+
+    _, x, y = _g1_model(cuda, (4,), 60, "dt")
+    model = GPCVModel(**kw).init(x, y, per_lane=kw.get("q") == "full")
+    before = native.launches[G1]
+    model.elbo(x, y).sum().backward()
+    assert native.launches[G1] == before
+
+
+def test_small_pipeline_with_g1_card_matches_cpu(cuda):
+    """``fit_forecast_batch`` at B=2, n=72 from x = 0 (the small input that
+    ``chip_smoke.py`` compares), G1 on the card and the plain path on the
+    CPU, on the same normals: losses and vols rtol 1e-3, the fan rtol 2e-3
+    / atol 1e-3 (the small-pipeline tests' tolerances).  G1 runs once a
+    GPCV step on the card and never on the CPU."""
+    from volt_tpu_torch.data import sabr_paths
+    from volt_tpu_torch.parallel import PipelineConfig, fit_forecast_batch
+
+    b, n, h, s = 2, 72, 10, 64
+    f, _ = sabr_paths(steps=n + 1, seed=77, n_paths=b)
+    x = torch.arange(n, dtype=torch.float32) / 252.0
+    test_x = x[-1] + torch.arange(1, h + 1) / 252.0
+    cfg = PipelineConfig(gpcv_iters=60, vol_iters=60, data_iters=40, k=20,
+                         nsample=s, output="quantiles")
+    g = torch.Generator().manual_seed(5)
+    noise = {"vol_r0": torch.randn(b, s, generator=g),
+             "vol_z": torch.randn(b, s, h, generator=g),
+             "zs": torch.randn(b, s, h, generator=g)}
+    out, launched = {}, {}
+    for dev in ("cpu", "cuda"):
+        before = native.launches[G1]
+        out[dev] = fit_forecast_batch(
+            None, x.to(dev), torch.tensor(f, device=dev), test_x.to(dev),
+            cfg, noise={k: v.to(dev) for k, v in noise.items()})
+        launched[dev] = native.launches[G1] - before
+    assert launched == {"cpu": 0, "cuda": cfg.gpcv_iters}
+    (fan_c, aux_c), (fan_g, aux_g) = out["cpu"], out["cuda"]
+    assert bool(aux_g["ok"].all())
+    for key in ("gpcv_loss", "vol_loss", "data_loss", "vol"):
+        torch.testing.assert_close(aux_g[key].cpu(), aux_c[key], rtol=1e-3,
+                                   atol=0.0, msg=key)
+    torch.testing.assert_close(fan_g.cpu(), fan_c, rtol=2e-3, atol=1e-3)
+
+
+def test_gpcv_elbo_wrapper_refuses_what_g1_does_not_take(cuda):
+    z = torch.zeros(2, 5, device="cuda")
+    c = torch.zeros(2, 1, device="cuda")
+    with pytest.raises(ValueError):
+        tge.tridiag_elbo_cuda(z[0], z, z, z, z, c, c)
+    with pytest.raises(TypeError):
+        tge.tridiag_elbo_cuda(z[0], z.double(), z, z, z[:, 1:], c, c)
 
 
 # --- the GPCV families and the option layer on the card ---------------------

@@ -34,7 +34,8 @@ __all__ = ["library", "launch", "launches", "check_tensors", "build_log"]
 _HERE = Path(__file__).resolve().parent
 _CSRC = _HERE / "csrc"
 _BUILD = _HERE / "_build"
-_SOURCES = ("ewma_filter.cu", "kalman.cu", "volt_cov.cu", "gh_ell.cu")
+_SOURCES = ("ewma_filter.cu", "kalman.cu", "volt_cov.cu", "gh_ell.cu",
+            "gpcv_elbo.cu")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -50,6 +51,7 @@ _SIGNATURES = {
     "volt_covariance": (_P, _P, _I, _I, _P),
     "volt_gh_ell_forward": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "volt_gh_ell_backward": (_P, _P, _P, _P, _P, _P, _I, _P),
+    "volt_gpcv_tridiag_elbo": (_P, _I, *(_P,) * 13, _I, _I, _P),
 }
 
 # What :func:`launch` passes as it is; everything else is a tensor.
