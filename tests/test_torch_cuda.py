@@ -986,3 +986,63 @@ def test_every_sync_of_a_tick_is_in_a_sync_span(cuda):
     assert found
     assert [f for f in found if not any(
         s.startswith("sync:") for s in f[0])] == []
+
+
+def test_multitask_tick_spans_on_the_card(cuda):
+    """Over one warm tick of the multitask pipeline every sync that
+    PyTorch reports falls inside a ``sync:`` span, and the Kronecker
+    spans nest as on the CPU: ``ell`` and ``kron_kl`` in each GPCV
+    forward, ``woodbury`` with its ``sync:solve`` in each vol forward,
+    and the sampler's stage ``sample_vol`` (``prior_draw``, ``eigh`` with
+    its ``sync:eigh``, ``kron_solve``) inside ``rollout``."""
+    import collections
+
+    from volt_tpu_torch.parallel import (MultitaskPipelineConfig,
+                                         fit_forecast_multitask,
+                                         warm_start_multitask)
+    from volt_tpu_torch.utils import profiling
+
+    t, n, h, steps = 8, 200, 20, 3
+    x = torch.arange(n, device="cuda") / 252.0
+    test_x = x[-1] + torch.arange(1, h + 1, device="cuda") / 252.0
+    ys = 100.0 * torch.exp(torch.cumsum(0.01 * torch.randn(
+        t, n + 2, device="cuda", generator=cuda), dim=-1))
+    cfg = MultitaskPipelineConfig(gpcv_iters=steps, vol_iters=steps,
+                                  data_iters=steps, k=20, nsample=64,
+                                  output="quantiles")
+    _, aux = fit_forecast_multitask(cuda, x, ys[:, :-1], test_x, cfg)
+    ticks = []
+
+    def tick():
+        init = warm_start_multitask(aux, shift=1, n=n)
+        ticks.append(fit_forecast_multitask(cuda, x, ys[:, 1:], test_x,
+                                            cfg, init))
+
+    found = sync_warnings(tick)
+    print("syncs of a multitask tick:", found)
+    assert found
+    assert [f for f in found if not any(
+        s.startswith("sync:") for s in f[0])] == []
+    with profiling.recording():
+        tick()
+    rows = profiling.spans()
+
+    def path(i):
+        names = []
+        while i is not None:
+            names.append(rows[i].name)
+            i = rows[i].parent
+        return "/".join(reversed(names))
+
+    paths = collections.Counter(path(i) for i in range(len(rows)))
+    forward = "call/{}/adam_step/forward/"
+    for p, count in {forward.format("gpcv") + "ell": steps,
+                     forward.format("gpcv") + "kron_kl": steps,
+                     forward.format("vol") + "woodbury": steps,
+                     forward.format("vol") + "woodbury/sync:solve": steps,
+                     "call/rollout/sample_vol/prior_draw": 1,
+                     "call/rollout/sample_vol/eigh/sync:eigh": 1,
+                     "call/rollout/sample_vol/kron_solve": 1}.items():
+        assert paths[p] == count, (p, paths[p])
+    assert set(ticks[-1][1]["stage_seconds"]) == {"gpcv", "vol", "data",
+                                                  "rollout", "sample_vol"}

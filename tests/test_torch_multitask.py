@@ -662,7 +662,9 @@ def test_pipeline_cold(pipeline_runs, q):
     assert aux["ok"].tolist() == jaux["ok"].tolist() == [True] * T
     assert aux["data_loss_trajs"].shape == (T, STD["data_iters"])
     close(aux["vol_params"], jaux["vol_params"], 1e-3, 1e-4)
-    assert set(aux["stage_seconds"]) == {"gpcv", "vol", "data", "rollout"}
+    # the four stages, and the Matheron sampler's part of the rollout
+    assert set(aux["stage_seconds"]) == {"gpcv", "vol", "data", "rollout",
+                                         "sample_vol"}
 
 
 @pytest.mark.parametrize("shift", [0, 1])

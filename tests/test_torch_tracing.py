@@ -195,9 +195,19 @@ def test_warm_start_is_its_own_call():
     assert "sync:jitter" not in _names(rows, range(len(rows)))
 
 
+def _inner(rows, index):
+    """The names of a span's children, its ``sync:`` spans left out."""
+    return [n for n in _names(rows, _children(rows, index))
+            if not n.startswith("sync:")]
+
+
 def test_multitask_span_tree():
     """(d) ``fit_forecast_multitask``: one ``call``, the four stages in
-    order, three ``adam_step`` spans in each fitting stage."""
+    order, three ``adam_step`` spans in each fitting stage; each GPCV
+    forward split into ``ell`` and ``kron_kl``, each vol forward a
+    ``woodbury`` with its ``sync:solve``; the Matheron sampler its own
+    stage ``sample_vol`` inside ``rollout``, of ``prior_draw``, ``eigh``
+    (with ``sync:eigh``) and ``kron_solve``."""
     with recording():
         _, aux = _multitask()
     rows = spans()
@@ -208,11 +218,36 @@ def test_multitask_span_tree():
     kids = [i for i in _children(rows, roots[0])
             if not rows[i].name.startswith("sync:")]
     assert _names(rows, kids) == STAGES
-    assert set(aux["stage_seconds"]) == set(STAGES)
+    assert set(aux["stage_seconds"]) == set(STAGES) | {"sample_vol"}
+    forwards = {"gpcv": ["ell", "kron_kl"], "vol": ["woodbury"],
+                "data": []}
     for i in kids:
         steps = [j for j in _children(rows, i)
                  if rows[j].name == "adam_step"]
         assert len(steps) == (STEPS if rows[i].name != "rollout" else 0)
+        for j in steps:
+            (fwd,) = [k for k in _children(rows, j)
+                      if rows[k].name == "forward"]
+            assert _inner(rows, fwd) == forwards[rows[i].name]
+    stages = dict(zip(STAGES, kids))
+    assert _inner(rows, stages["rollout"]) == ["sample_vol", "scan", "fan"]
+    (sample,) = [i for i in _children(rows, stages["rollout"])
+                 if rows[i].name == "sample_vol"]
+    assert _inner(rows, sample) == ["prior_draw", "eigh", "kron_solve"]
+    s = rows[sample]
+    assert aux["stage_seconds"]["sample_vol"] == (s.end_ns - s.start_ns) * 1e-9
+    parents = {(r.name, rows[r.parent].name) for r in rows
+               if r.name in ("sync:solve", "sync:eigh")}
+    assert parents == {("sync:solve", "woodbury"), ("sync:eigh", "eigh")}
+    assert sum(r.name == "sync:solve" for r in rows) == STEPS
+
+
+def test_multitask_off_records_nothing():
+    """A multitask call outside ``recording()`` records no span, and its
+    stage clock still holds the four stages and ``sample_vol``."""
+    _, aux = _multitask()
+    assert spans() == []
+    assert set(aux["stage_seconds"]) == set(STAGES) | {"sample_vol"}
 
 
 def test_spans_share_the_profilers_clock():

@@ -28,6 +28,7 @@ import torch
 from ..ops.bidiag import min_precision, takahashi_band
 from ..ops.chol import cholesky_solve, psd_safe_cholesky, \
     solve_lower_triangular
+from ..utils.profiling import annotate
 
 __all__ = [
     "kron_mvn_log_prob",
@@ -140,7 +141,9 @@ def _woodbury_ll(r_tilde, z, v, s_mat, c, k_task, logdet_blocks):
     eye_t = torch.eye(t, dtype=r_tilde.dtype, device=r_tilde.device)
     m = eye_t + c * (s_mat @ k_task)
     kv = (k_task @ v[..., None])
-    corr = torch.linalg.solve(m, kv)[..., 0]
+    # the solve's error check waits for the device
+    with annotate("sync:solve"):
+        corr = torch.linalg.solve(m, kv)[..., 0]
     quad = torch.sum(r_tilde * z, dim=(-2, -1)) - c * torch.sum(v * corr,
                                                                  dim=-1)
     logdet = logdet_blocks + torch.linalg.slogdet(m)[1]

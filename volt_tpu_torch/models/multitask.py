@@ -36,6 +36,7 @@ from ..ops.brownian import (future_grid_ok, min_kernel_eigenvalues,
                             min_kernel_project, nan_poison)
 from ..ops.chol import cholesky_solve, psd_safe_cholesky
 from ..ops.mvn import sample_mvn
+from ..utils.profiling import annotate
 
 __all__ = ["MultitaskBMGP", "MultitaskBMGPState", "MultitaskVariationalGP"]
 
@@ -142,8 +143,9 @@ class MultitaskBMGP(nn.Module):
             ..., :, None] * diag_b[..., None, :]
         ld = vol * cache["dx"] * cache["mu"]
         c = vol * (cache["x0"] - cache["dx"])
-        lp = kron_mvn_log_prob_blockdiag_lowrank(
-            r_tilde, ld, c, factor, task_diag, self._noise(), cache["w"])
+        with annotate("woodbury"):
+            lp = kron_mvn_log_prob_blockdiag_lowrank(
+                r_tilde, ld, c, factor, task_diag, self._noise(), cache["w"])
         return lp / (n * t)
 
     def posterior(self, train_x, train_y, test_x):
@@ -184,24 +186,27 @@ class MultitaskBMGP(nn.Module):
             eps_z = torch.randn(nsample, n, t, **kw)
         else:
             z, eps_z = noise
-        lt_root = psd_safe_cholesky(k_task)
-        joint_x = torch.cat([train_x, test_x], dim=-1)
-        dx = torch.diff(joint_x, dim=-1,
-                        prepend=torch.zeros_like(joint_x[..., :1]))
-        sd = torch.sqrt(torch.clamp(vol * dx, min=0.0))  # (N+M,)
-        w_paths = torch.cumsum(sd[:, None] * z, dim=-2) @ lt_root.mT
-        u = (train_y - self.mean(train_x)) - w_paths[..., :n, :] \
-            - torch.sqrt(s2) * eps_z
+        with annotate("prior_draw"):
+            lt_root = psd_safe_cholesky(k_task)
+            joint_x = torch.cat([train_x, test_x], dim=-1)
+            dx = torch.diff(joint_x, dim=-1,
+                            prepend=torch.zeros_like(joint_x[..., :1]))
+            sd = torch.sqrt(torch.clamp(vol * dx, min=0.0))  # (N+M,)
+            w_paths = torch.cumsum(sd[:, None] * z, dim=-2) @ lt_root.mT
         # the Kronecker solve in the factors' eigenbases
-        lam, qd = torch.linalg.eigh(torch.minimum(train_x[:, None],
-                                                  train_x[None, :]))
-        ld = vol * torch.clamp(lam, min=0.0)
-        lt, qt = torch.linalg.eigh(k_task)
-        denom = ld[:, None] * torch.clamp(lt, min=0.0)[None, :] + s2
-        rot = (qd.mT @ (u @ qt)) / denom
-        # rank-one cross block: vol (x^T alpha) K_t per sample
-        xa = ((train_x @ qd) @ rot) @ qt.mT  # (S, T)
-        corr = vol * (xa @ k_task)
+        with annotate("eigh"), annotate("sync:eigh"):
+            lam, qd = torch.linalg.eigh(torch.minimum(train_x[:, None],
+                                                      train_x[None, :]))
+            lt, qt = torch.linalg.eigh(k_task)
+        with annotate("kron_solve"):
+            u = (train_y - self.mean(train_x)) - w_paths[..., :n, :] \
+                - torch.sqrt(s2) * eps_z
+            ld = vol * torch.clamp(lam, min=0.0)
+            denom = ld[:, None] * torch.clamp(lt, min=0.0)[None, :] + s2
+            rot = (qd.mT @ (u @ qt)) / denom
+            # rank-one cross block: vol (x^T alpha) K_t per sample
+            xa = ((train_x @ qd) @ rot) @ qt.mT  # (S, T)
+            corr = vol * (xa @ k_task)
         ok = future_grid_ok(test_x, train_x)
         return nan_poison(self.mean(test_x) + w_paths[..., n:, :]
                           + corr[..., None, :], ok[..., None, None])
@@ -362,11 +367,13 @@ class MultitaskVariationalGP(nn.Module):
     def elbo(self, x, y, likelihood, num_locs: int = 75):
         """The ELBO at inducing == train: the mean expected log-likelihood
         of ``y (N, T)`` less ``KL / (N T)``."""
-        ell = likelihood.expected_log_prob(y, self.variational_mean,
-                                           self.marginal_variances(),
-                                           num_locs=num_locs)
-        return torch.mean(ell, dim=(-2, -1)) \
-            - self.kl_divergence(x) / (y.shape[-2] * y.shape[-1])
+        with annotate("ell"):
+            ell = torch.mean(likelihood.expected_log_prob(
+                y, self.variational_mean, self.marginal_variances(),
+                num_locs=num_locs), dim=(-2, -1))
+        with annotate("kron_kl"):
+            kl = self.kl_divergence(x)
+        return ell - kl / (y.shape[-2] * y.shape[-1])
 
     def predict(self, train_x, test_x):
         """The unwhitened Kronecker predictive ``(mean (M, T), cov (M T,

@@ -102,7 +102,8 @@ def fit_forecast_multitask(generator, train_x, train_ys, test_x,
     the fitted parameters as nested dicts (the JAX layout:
     ``gpcv_params = {"model", "lik"}``, ``vol_params``, ``volt_params``
     with the task axis) and ``stage_seconds`` (as
-    :func:`~volt_tpu_torch.parallel.fit_forecast_batch` times them).
+    :func:`~volt_tpu_torch.parallel.fit_forecast_batch` times them, and
+    ``sample_vol``: the correlated vol draws, a part of ``rollout``).
 
     ``init_params``: ``{"gpcv", "vol", "volt"}``, e.g.
     :func:`warm_start_multitask` of a previous ``aux``.
@@ -187,7 +188,7 @@ def fit_forecast_multitask(generator, train_x, train_ys, test_x,
     # ---- stage 4: correlated vol forecast + per-task Markov rollouts -------
     with stage("rollout", seconds, device), torch.no_grad():
         h = test_x.shape[-1]
-        with annotate("sample_vol"):
+        with stage("sample_vol", seconds, device):
             # every task's and every path's draws, alike on every rank
             log_vol_draws = mt_state.sample_forecast(
                 test_x, config.nsample, generator,
