@@ -51,7 +51,11 @@ Phases, each printed with its time; any failure exits non-zero:
    float32 values at (64, 999), (505, 999) and (3, 37), each within 1e-5
    of its largest value; timed at (64, 999) and (505, 999), with and
    without the gradient, the plain composition's forward and backward
-   beside);
+   beside); G3 (the multitask model's joint tridiagonal GPCV ELBO and its
+   gradient in one call, float64 inside: against the plain composition in
+   float64 on the same float32 values at (n, T, r) = (999, 505, 1),
+   (64, 8, 2) and (3, 2, 1), each within 1e-5 of its largest value; timed
+   at (999, 505, 1) as G1);
 4. the main path at full width: ``fit_forecast_batch`` on 64 SABR series
    of 999 returns with the ``PipelineConfig`` defaults (300/300/300 Adam
    steps, EWMA k=300, 1000 paths x 100 steps, quantile fan), then once
@@ -240,7 +244,8 @@ runs the named phases (``PHASES``: ``kernel_times``, ``kalman_times``,
 process has not), ``gpcv_full``, ``gpcv_cv``, ``gpcv_sparse``,
 ``option_pricing``, ``fbm_path``, ``multitask``, ``long_main_path``,
 ``baselines``, ``mesh``, ``evaluation``, ``timing``,
-``gpcv_elbo_times`` (G1, in a tree that has it); a phase named twice
+``gpcv_elbo_times`` (G1, in a tree that has it), ``mt_gpcv_elbo_times``
+(G3, likewise); a phase named twice
 runs twice, the first cold) in
 four fresh processes, in the trees parent, this one, this one, parent,
 each with its own package and kernels and this file's phases and
@@ -986,6 +991,140 @@ def time_gpcv_elbo(torch, shapes=G1_SHAPES[:2]):
             f"{way} {r['ms']:.4f} ms a call, {r['device_ms']:.4f} ms on the "
             f"device (bound {r['bound_ms']:.4f} ms)"
             for way, r in rec.items() if way != "plain_ms")
+            + f"; plain forward and backward {rec['plain_ms']:.4f} ms a call")
+    return times
+
+
+G3_SHAPES = ((999, 505, 1), (64, 8, 2), (3, 2, 1))
+
+
+def g3_args(torch, g, n, t, r):
+    """G3's tensors as the multitask pipeline gives them: a tridiagonal
+    multitask GPCV model at its Laplace init on returns of a drifting
+    scale (n >= 11; below, parameters of the same sizes), on the grid from
+    0, every parameter then moved off it at random
+    (the task root gains a random lower triangle)."""
+    from volt_tpu_torch.likelihoods import VolatilityGaussianLikelihood
+    from volt_tpu_torch.models.multitask import MultitaskVariationalGP
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=g)
+
+    x = torch.arange(n, device="cuda", dtype=torch.float32) / 252.0
+    scale = 0.2 * torch.exp(0.05 * torch.cumsum(randn(t, n), dim=-1))
+    y = (scale * randn(t, n)).T.contiguous()
+    lik = VolatilityGaussianLikelihood(param="exp")
+    model = MultitaskVariationalGP(t, rank=r, q="tridiag")
+    model.init(x, torch.float32, torch.Generator().manual_seed(1))
+    if n >= 11:
+        model.initialize_variational_parameters(lik, x, y)
+    else:  # below the Laplace init's length: values of the same sizes
+        with torch.no_grad():
+            model.variational_mean.copy_(-1.5 + 0.3 * randn(n, t))
+            model.mean_constants.fill_(-1.5)
+            model.q_log_d.copy_(2.0 + 0.3 * randn(n))
+            model.q_e.copy_(-5.0 + randn(n - 1))
+    with torch.no_grad():
+        for p in model.parameters():
+            p.mul_(1.0 + 0.05 * randn(*p.shape))
+        model.variational_task_covar_root.add_(
+            torch.tril(0.05 * randn(t, t), diagonal=-1))
+        factor, task_diag = model.index_kernel.factor_and_diag()
+        return tuple(a.detach().contiguous() for a in (
+            x, y, model.variational_mean, model.q_log_d, model.q_e,
+            model.variational_task_covar_root, model.mean_constants,
+            factor, task_diag, model.data_kernel.vol()))
+
+
+def mt_tridiag_elbo_plain(torch, x, y, m, q_log_d, q_e, root, c, factor, v,
+                          vol):
+    """The plain composition that ``MultitaskVariationalGP.elbo`` runs off
+    the card (``q="tridiag"``, the exp term)."""
+    from volt_tpu_torch.gp.kronecker import kron_kl_bm_prior_tridiag
+    from volt_tpu_torch.ops.bidiag import takahashi_band
+
+    d = torch.exp(q_log_d)
+    rt = torch.tril(root)
+    var = takahashi_band(d, q_e)[0][:, None] * torch.sum(rt * rt, dim=-1)
+    e = torch.exp(torch.clamp(-2.0 * m + 2.0 * var, max=80.0))
+    ell = torch.mean(-0.5 * y * y * e - m - 0.5 * math.log(2.0 * math.pi))
+    k_task = factor @ factor.mT + torch.diag_embed(v)
+    kl = kron_kl_bm_prior_tridiag(m, d, q_e, root, c.expand(m.shape), x, vol,
+                                  k_task)
+    return ell - kl / m.numel()
+
+
+G3_GRADS = ("m", "q_log_d", "q_e", "root", "c", "factor", "v", "vol")
+
+
+def check_mt_gpcv_elbo(torch):
+    """G3 against the plain composition in float64 on the same float32
+    values: the ELBO and its eight gradients, each over its largest
+    float64 value, at the shapes of ``G3_SHAPES``."""
+    from volt_tpu_torch.ops import mt_gpcv_elbo as tmg
+
+    g = torch.Generator(device="cuda").manual_seed(13)
+    worst = 0.0
+    for n, t, r in G3_SHAPES:
+        args = g3_args(torch, g, n, t, r)
+        out, grads = tmg.mt_tridiag_elbo_cuda(*args, grad=True)
+        ins = [a.double().requires_grad_() for a in args[2:]]
+        want = mt_tridiag_elbo_plain(torch, args[0].double(),
+                                     args[1].double(), *ins)
+        wgrads = torch.autograd.grad(want, ins)
+        errs = {"elbo": abs(out.item() - want.item()) / abs(want.item())}
+        for name, a, w in zip(G3_GRADS, grads, wgrads):
+            if w.numel():
+                errs[name] = (a.double() - w).abs().max().item() \
+                    / w.abs().max().item()
+        print(f"   G3 {(n, t, r)}: worst error over the largest float64 "
+              f"value: " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+        if not max(errs.values()) <= 1e-5:
+            fail(f"G3 disagrees with the float64 composition at {(n, t, r)}")
+        worst = max(worst, *errs.values())
+    times = time_mt_gpcv_elbo(torch)
+    main = times[str(G3_SHAPES[0])]
+    return {"name": "mt_gpcv_tridiag_elbo", "route": "cuda",
+            "source": "volt_tpu_torch/csrc/mt_gpcv_elbo.cu",
+            "replaces": "none: the composition in "
+                        "MultitaskVariationalGP.elbo",
+            "symbol": "volt_mt_gpcv_tridiag_elbo", "max_rel_err": worst,
+            **main["grad"], "plain_ms": main["plain_ms"],
+            "library_ms": None, "library_device_ms": None,
+            "by_shape": times}
+
+
+def time_mt_gpcv_elbo(torch, shapes=G3_SHAPES[:1]):
+    """G3 per call and on the device alone, with the gradient (a joint
+    GPCV Adam step's call, three launches) and without; the plain
+    composition's forward and backward per call beside."""
+    from volt_tpu_torch.ops import mt_gpcv_elbo as tmg
+
+    g = torch.Generator(device="cuda").manual_seed(14)
+    times = {}
+    for n, t, r in shapes:
+        args = g3_args(torch, g, n, t, r)
+        ways = {"grad": lambda *a: tmg.mt_tridiag_elbo_cuda(*a, grad=True),
+                "no_grad": tmg.mt_tridiag_elbo_cuda}
+        rec = {way: {"ms": cuda_ms(torch, lambda: fn(*args)),
+                     "device_ms": device_ms(torch, fn, *args)}
+               for way, fn in ways.items()}
+        # bytes: every input read once (x, y, m, q_log_d, q_e, the root,
+        # c, F, v, vol) and the ELBO and, with the gradient, the eight
+        # gradients written once; the float64 workspace stays in L2
+        reads = n + 2 * n * t + 2 * n + t * t + 2 * t + t * r + 1
+        writes = n * t + 2 * n + t * t + 2 * t + t * r + 1
+        rec["grad"].update(bound_ms(4 * (reads + 1 + writes), 0,
+                                    FP64_OPS_PER_S))
+        rec["no_grad"].update(bound_ms(4 * (reads + 1), 0, FP64_OPS_PER_S))
+        ins = [a.clone().requires_grad_() for a in args[2:]]
+        rec["plain_ms"] = cuda_ms(torch, lambda: torch.autograd.grad(
+            mt_tridiag_elbo_plain(torch, *args[:2], *ins), ins))
+        times[str((n, t, r))] = rec
+        print(f"   G3 {(n, t, r)}: " + "; ".join(
+            f"{way} {r_['ms']:.4f} ms a call, {r_['device_ms']:.4f} ms on "
+            f"the device (bound {r_['bound_ms']:.4f} ms)"
+            for way, r_ in rec.items() if way != "plain_ms")
             + f"; plain forward and backward {rec['plain_ms']:.4f} ms a call")
     return times
 
@@ -2975,7 +3114,7 @@ def smoke():
     s1 = time_kalman(torch, vt)
     s1[0]["max_abs_err"], s1[1]["max_abs_err"] = fwd_err, bwd_err
     kernels = [k1, *s1, check_volt_cov(torch), *check_gh_ell(torch),
-               check_gpcv_elbo(torch)]
+               check_gpcv_elbo(torch), check_mt_gpcv_elbo(torch)]
     done(t0)
 
     t0 = phase("main path: fit_forecast_batch, B=64, n=999, defaults")
@@ -3034,6 +3173,7 @@ def smoke():
     t0 = phase("multitask: fit_forecast_multitask, T=505, n=999, cold and "
                "warm")
     mt_launches, multitask = run_multitask(torch, vt, native)
+    paths["mt_gpcv_tridiag_elbo"] = ("fit_forecast_multitask", mt_launches)
     done(t0)
 
     t0 = phase("long_main_path: fit_forecast_batch, B=16, n=16000")
@@ -3106,6 +3246,7 @@ PHASES = {
     "kernel_times": lambda torch, vt, native: {"ewma": time_ewma(torch),
                                                "gh_ell": time_gh_ell(torch)},
     "gpcv_elbo_times": lambda torch, vt, native: time_gpcv_elbo(torch),
+    "mt_gpcv_elbo_times": lambda torch, vt, native: time_mt_gpcv_elbo(torch),
     "main_path": lambda torch, vt, native: run_main_path(torch, vt,
                                                          native)[1],
     "fixed_cov": lambda torch, vt, native: run_fixed_cov(torch, vt,

@@ -21,6 +21,7 @@ tvc = importlib.import_module("volt_tpu_torch.ops.volt_cov")
 tgh = importlib.import_module("volt_tpu_torch.ops.gh_ell")
 tvi = importlib.import_module("volt_tpu_torch.ops.volint")
 tge = importlib.import_module("volt_tpu_torch.ops.gpcv_elbo")
+tmg = importlib.import_module("volt_tpu_torch.ops.mt_gpcv_elbo")
 
 pytestmark = pytest.mark.cuda
 
@@ -272,9 +273,7 @@ def _g1_model(gen, batch, n, grid):
 def _g1_against_float64(gen, model, x, y):
     """``model.elbo`` (G1) and its gradients for a random cotangent, and the
     worst distance of each from a float64 copy's plain path, over the
-    largest value of the float64 one (for a gradient, at least a thousandth
-    of the largest entry of any parameter's: at n = 1 from x = 0 the vol
-    gradient's terms cancel to 0)."""
+    largest value of the float64 one (``_worst_over_largest``)."""
     import copy
 
     ref = copy.deepcopy(model).double()
@@ -293,6 +292,13 @@ def _g1_against_float64(gen, model, x, y):
     for name, (a, b) in pairs.items():
         assert bool(torch.isfinite(a).all()), name
     pairs = {k: v for k, v in pairs.items() if v[1].numel()}  # q_e at n=1
+    return _worst_over_largest(pairs)
+
+
+def _worst_over_largest(pairs):
+    """Each pair's worst distance over the largest float64 value (for a
+    gradient, at least a thousandth of the largest entry of any
+    parameter's: at n = 1 from x = 0 the vol gradient's terms cancel)."""
     floor = 1e-3 * max(b.abs().max().item() for name, (_, b) in pairs.items()
                        if name != "elbo")
     return {name: (a.double() - b).abs().max().item()
@@ -409,6 +415,221 @@ def test_gpcv_elbo_wrapper_refuses_what_g1_does_not_take(cuda):
         tge.tridiag_elbo_cuda(z[0], z, z, z, z, c, c)
     with pytest.raises(TypeError):
         tge.tridiag_elbo_cuda(z[0], z.double(), z, z, z[:, 1:], c, c)
+
+
+# --- G3: the joint tridiagonal GPCV ELBO of the multitask model -------------
+
+G3 = "volt_mt_gpcv_tridiag_elbo"
+
+
+def _g3_model(gen, n, t, r, grid, **kw):
+    """A tridiagonal multitask GPCV model on the card, its likelihood, grid
+    and returns ``(n, T)``: the Laplace init on returns of a drifting
+    scale (n >= 11; below, parameters of the same sizes), every parameter
+    then moved off it at random (the task root
+    gains a random lower triangle).  ``grid``: ``"zero"`` (from 0: the
+    jitter floor is taken at the first step) or ``"dt"`` (from one
+    step)."""
+    from volt_tpu_torch.likelihoods import VolatilityGaussianLikelihood
+    from volt_tpu_torch.models.multitask import MultitaskVariationalGP
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+
+    dt = 1.0 / 252
+    x = torch.arange(n, device="cuda", dtype=torch.float32) * dt \
+        + (dt if grid == "dt" else 0.0)
+    scale = 0.2 * torch.exp(0.05 * torch.cumsum(randn(t, n), dim=-1))
+    y = (scale * randn(t, n)).T.contiguous()
+    lik = VolatilityGaussianLikelihood(param=kw.pop("param", "exp"))
+    lik.init((), torch.float32, "cuda", torch.Generator().manual_seed(0))
+    model = MultitaskVariationalGP(t, rank=r, q=kw.pop("q", "tridiag"))
+    model.init(x, torch.float32, torch.Generator().manual_seed(1))
+    if n >= 11:
+        model.initialize_variational_parameters(lik, x, y)
+    else:  # below the Laplace init's length: values of the same sizes
+        with torch.no_grad():
+            model.variational_mean.copy_(-1.5 + 0.3 * randn(n, t))
+            model.mean_constants.fill_(-1.5)
+            model.q_log_d.copy_(2.0 + 0.3 * randn(n))
+            model.q_e.copy_(-5.0 + randn(n - 1))
+    with torch.no_grad():
+        for p in model.parameters():
+            p.mul_(1.0 + 0.05 * randn(*p.shape))
+        model.variational_task_covar_root.add_(
+            torch.tril(0.05 * randn(t, t), diagonal=-1))
+    return model, lik, x, y
+
+
+def _g3_pairs(gen, model, lik, x, y):
+    """``model.elbo`` (G3, one call) and its gradients for a random
+    cotangent, beside a float64 copy's plain path on the same values."""
+    import copy
+
+    ref = copy.deepcopy(model).double()
+    cot = torch.randn((), device="cuda", generator=gen)
+    before = native.launches[G3]
+    got = model.elbo(x, y, lik)
+    (got * cot).backward()
+    assert native.launches[G3] == before + 1
+    want = ref.elbo(x.double(), y.double(), lik)
+    (want * cot.double()).backward()
+    assert native.launches[G3] == before + 1
+    pairs = {"elbo": (got.detach(), want.detach())}
+    on_ref = dict(ref.named_parameters())
+    for name, p in model.named_parameters():
+        pairs[name] = (p.grad, on_ref[name].grad)
+    return {k: v for k, v in pairs.items() if v[1].numel()}  # q_e at n=1
+
+
+@pytest.mark.parametrize("grid", ["zero", "dt"])
+@pytest.mark.parametrize("shape", [(999, 505, 1), (200, 64, 4), (64, 8, 2),
+                                   (2, 3, 1), (1, 1, 1)])
+def test_mt_gpcv_elbo_kernel_matches_float64(cuda, shape, grid):
+    """G3's ELBO and each parameter's gradient (``raw_var`` through the
+    softplus and ``raw_vol`` through the sigmoid, in autograd) against the
+    plain composition in float64 on the same float32 values, in one call:
+    each within 1e-5 of the largest float64 value."""
+    model, lik, x, y = _g3_model(cuda, *shape, grid)
+    pairs = _g3_pairs(cuda, model, lik, x, y)
+    for name, (a, _) in pairs.items():
+        assert bool(torch.isfinite(a).all()), name
+    errs = _worst_over_largest(pairs)
+    print(f"G3 {shape} {grid}: worst error over the largest value "
+          + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+    assert max(errs.values()) <= 1e-5, errs
+
+
+def test_mt_gpcv_elbo_kernel_where_the_float32_ladder_adds_jitter(cuda):
+    """A task covariance ``F F^T + diag(v)`` with ``v`` near 1e-7, whose
+    bare float32 Cholesky fails: the float32 plain path (on the CPU, where
+    G3 does not run) climbs the jitter ladder, the float64 one does not.
+    G3 agrees with the float64 plain path within 1e-5 of the largest value
+    and is far from the float32 one."""
+    import copy
+
+    model, lik, x, y = _g3_model(cuda, 64, 8, 1, "dt")
+    with torch.no_grad():
+        model.index_kernel.raw_var.fill_(-16.1)  # v = 1.0e-7
+        # equal entries: 9 + v rounds to 9 in float32, so its second pivot
+        # is 9 - 9 = 0; in float64 it is about 2 v
+        model.index_kernel.covar_factor.fill_(3.0)
+        k32 = model.index_kernel.covar_matrix()
+        k64 = copy.deepcopy(model.index_kernel).double().covar_matrix()
+    assert int(torch.linalg.cholesky_ex(k32.cpu()).info) != 0
+    assert int(torch.linalg.cholesky_ex(k64).info) == 0
+    with torch.no_grad():
+        plain32 = copy.deepcopy(model).cpu().elbo(x.cpu(), y.cpu(),
+                                                  lik).item()
+    pairs = _g3_pairs(cuda, model, lik, x, y)
+    errs = _worst_over_largest(pairs)
+    print("G3 where the float32 ladder adds jitter: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+    assert max(errs.values()) <= 1e-5, errs
+    got, want = (v.item() for v in pairs["elbo"])
+    assert abs(plain32 - want) > 1e-3 * abs(want) > abs(got - want)
+
+
+def test_mt_gpcv_elbo_kernel_non_finite_entry(cuda):
+    """A NaN in one return makes G3's ELBO NaN and leaves its gradients
+    NaN exactly where the float64 plain path's are, the rest within 1e-5
+    of the largest finite float64 value."""
+    model, lik, x, y = _g3_model(cuda, 64, 8, 1, "zero")
+    y[5, 3] = float("nan")
+    pairs = _g3_pairs(cuda, model, lik, x, y)
+    assert all(bool(torch.isnan(v)) for v in pairs.pop("elbo"))
+    for name, (a, b) in pairs.items():
+        bad = torch.isnan(b)
+        assert torch.equal(torch.isnan(a), bad), name
+        a, b = a[~bad].double(), b[~bad]
+        if b.numel():
+            err = (a - b).abs().max() / b.abs().max()
+            assert err.item() <= 1e-5, (name, err.item())
+
+
+def test_mt_gpcv_elbo_kernel_one_call_an_adam_step(cuda):
+    """A 30-step warm fit (the live tick's joint GPCV) calls G3 30 times,
+    once a step, and once more for an ELBO with no gradient."""
+    from volt_tpu_torch.train import _Packed, adam_loop
+
+    model, lik, x, y = _g3_model(cuda, 999, 64, 1, "dt")
+    packed = _Packed(model, lik)
+    before = native.launches[G3]
+    losses = adam_loop(packed, lambda: -model.elbo(x, y, lik), 30, 0.01)
+    assert native.launches[G3] == before + 30
+    assert bool(torch.isfinite(losses).all())
+    with torch.no_grad():
+        again = model.elbo(x, y, lik)
+    assert native.launches[G3] == before + 31
+    assert not again.requires_grad
+
+
+@pytest.mark.parametrize("kw", [{"q": "full"}, {"param": "cv"},
+                                {"rank": 5}, {"dtype": torch.float64}])
+def test_mt_gpcv_elbo_kernel_bypassed(cuda, kw):
+    """The dense family, the cv likelihood, a task factor of rank 5 and
+    float64 tensors keep the plain path on the card: no G3 call."""
+    kw = dict(kw)
+    dtype = kw.pop("dtype", torch.float32)
+    model, lik, x, y = _g3_model(cuda, 40, 6, kw.pop("rank", 1), "dt", **kw)
+    model.to(dtype)
+    before = native.launches[G3]
+    model.elbo(x.to(dtype), y.to(dtype), lik).backward()
+    assert native.launches[G3] == before
+
+
+def test_small_multitask_pipeline_with_g3_card_matches_cpu(cuda):
+    """``fit_forecast_multitask`` at T=4, n=72 on a grid from x = 0, G3 on
+    the card and the plain path on the CPU, on the same initial values and
+    normals: losses and vols rtol 1e-3, the fan rtol 2e-3 / atol 1e-3 (the
+    small-pipeline tests' tolerances).  G3 runs once a GPCV step on the
+    card and never on the CPU."""
+    from volt_tpu_torch.data import sabr_paths
+    from volt_tpu_torch.parallel import (MultitaskPipelineConfig,
+                                         fit_forecast_multitask)
+
+    t, n, h, s = 4, 72, 8, 32
+    f, _ = sabr_paths(steps=n + 1, seed=21, n_paths=t)
+    x = torch.arange(n, dtype=torch.float32) / 252.0
+    test_x = x[-1] + torch.arange(1, h + 1) / 252.0
+    g = torch.Generator().manual_seed(22)
+    noise = {"vol_z": torch.randn(s, n + h, t, generator=g),
+             "vol_eps": torch.randn(s, n, t, generator=g),
+             "zs": torch.randn(t, s, h, generator=g)}
+    cfg = MultitaskPipelineConfig(gpcv_iters=30, vol_iters=20, data_iters=20,
+                                  k=10, nsample=s, output="quantiles")
+    out, launched = {}, {}
+    for dev in ("cpu", "cuda"):
+        before = native.launches[G3]
+        out[dev] = fit_forecast_multitask(
+            torch.Generator().manual_seed(23), x.to(dev),
+            torch.tensor(f, device=dev), test_x.to(dev), cfg,
+            noise={k: v.to(dev) for k, v in noise.items()})
+        launched[dev] = native.launches[G3] - before
+    assert launched == {"cpu": 0, "cuda": cfg.gpcv_iters}
+    (fan_c, aux_c), (fan_g, aux_g) = out["cpu"], out["cuda"]
+    assert bool(aux_g["ok"].all())
+    for key in ("gpcv_loss", "vol_loss", "data_losses", "vols"):
+        torch.testing.assert_close(aux_g[key].cpu(), aux_c[key], rtol=1e-3,
+                                   atol=0.0, msg=key)
+    torch.testing.assert_close(fan_g.cpu(), fan_c, rtol=2e-3, atol=1e-3)
+
+
+def test_mt_gpcv_elbo_wrapper_refuses_what_g3_does_not_take(cuda):
+    def zeros(*shape):
+        return torch.zeros(*shape, device="cuda")
+
+    z, v = zeros(5, 3), zeros(3) + 1.0
+    args = [zeros(5), z, z, zeros(5), zeros(4), torch.eye(3, device="cuda"),
+            v, zeros(3, 1), v, zeros(1) + 0.2]
+    elbo, _ = tmg.mt_tridiag_elbo_cuda(*args)
+    assert elbo.shape == ()
+    for i, bad in ((4, zeros(5)), (7, zeros(3, 5)),
+                   (5, torch.eye(4, device="cuda"))):
+        with pytest.raises(ValueError):
+            tmg.mt_tridiag_elbo_cuda(*args[:i], bad, *args[i + 1:])
+    with pytest.raises(TypeError):
+        tmg.mt_tridiag_elbo_cuda(*args[:1], z.double(), *args[2:])
 
 
 # --- the GPCV families and the option layer on the card ---------------------
@@ -991,10 +1212,11 @@ def test_every_sync_of_a_tick_is_in_a_sync_span(cuda):
 def test_multitask_tick_spans_on_the_card(cuda):
     """Over one warm tick of the multitask pipeline every sync that
     PyTorch reports falls inside a ``sync:`` span, and the Kronecker
-    spans nest as on the CPU: ``ell`` and ``kron_kl`` in each GPCV
-    forward, ``woodbury`` with its ``sync:solve`` in each vol forward,
-    and the sampler's stage ``sample_vol`` (``prior_draw``, ``eigh`` with
-    its ``sync:eigh``, ``kron_solve``) inside ``rollout``."""
+    spans nest: ``mt_elbo`` (kernel G3) in each GPCV forward, with no
+    ``sync:jitter`` anywhere in the GPCV stage, ``woodbury`` with its
+    ``sync:solve`` in each vol forward, and the sampler's stage
+    ``sample_vol`` (``prior_draw``, ``eigh`` with its ``sync:eigh``,
+    ``kron_solve``) inside ``rollout``."""
     import collections
 
     from volt_tpu_torch.parallel import (MultitaskPipelineConfig,
@@ -1036,13 +1258,16 @@ def test_multitask_tick_spans_on_the_card(cuda):
 
     paths = collections.Counter(path(i) for i in range(len(rows)))
     forward = "call/{}/adam_step/forward/"
-    for p, count in {forward.format("gpcv") + "ell": steps,
-                     forward.format("gpcv") + "kron_kl": steps,
+    for p, count in {forward.format("gpcv") + "mt_elbo": steps,
+                     forward.format("gpcv") + "ell": 0,
+                     forward.format("gpcv") + "kron_kl": 0,
                      forward.format("vol") + "woodbury": steps,
                      forward.format("vol") + "woodbury/sync:solve": steps,
                      "call/rollout/sample_vol/prior_draw": 1,
                      "call/rollout/sample_vol/eigh/sync:eigh": 1,
                      "call/rollout/sample_vol/kron_solve": 1}.items():
         assert paths[p] == count, (p, paths[p])
+    assert not [p for p in paths if p.startswith("call/gpcv/")
+                and "sync:jitter" in p]
     assert set(ticks[-1][1]["stage_seconds"]) == {"gpcv", "vol", "data",
                                                   "rollout", "sample_vol"}

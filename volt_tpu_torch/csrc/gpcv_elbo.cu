@@ -71,6 +71,8 @@
 
 #include <cuda_runtime.h>
 
+#include "affine_scan.cuh"
+
 namespace {
 
 constexpr int THREADS = 128;
@@ -80,41 +82,7 @@ constexpr double HALF_LOG_2PI = 0.91893853320467274;
 constexpr double CAP = 80.0;
 constexpr double KL_JITTER = 1e-6;
 
-// z -> a z + b
-struct Affine {
-  double a, b;
-  __device__ static Affine identity() { return {1.0, 0.0}; }
-  // this map applied after `x`
-  __device__ Affine after(const Affine& x) const { return {a * x.a, a * x.b + b}; }
-  __device__ Affine shfl(int src) const {
-    return {__shfl_sync(FULL, a, src), __shfl_sync(FULL, b, src)};
-  }
-};
-
-// Exclusive scan of the threads' maps in thread order (from the last
-// thread when `reverse`): the composition of the maps of all threads
-// before this one, the latest applied last.  `totals` holds WARPS maps of
-// shared memory.
-__device__ Affine exclusive_scan(Affine x, bool reverse, Affine* totals) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int pos = reverse ? 31 - lane : lane;  // place in scan order
-  const int wpos = reverse ? WARPS - 1 - warp : warp;
-  const int back = reverse ? 1 : -1;           // lane step to earlier maps
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const Affine y = x.shfl(lane + back * off);
-    if (pos >= off) x = x.after(y);
-  }
-  if (pos == 31) totals[wpos] = x;
-  Affine ex = x.shfl(lane + back);
-  if (pos == 0) ex = Affine::identity();
-  __syncthreads();
-  Affine before = Affine::identity();
-  for (int w = 0; w < wpos; ++w) before = totals[w].after(before);
-  __syncthreads();  // totals is reused by the next scan
-  return ex.after(before);
-}
+using volt::Affine;
 
 // The block's sums of three values, in every thread.
 __device__ void block_sum3(double v[3], double* partial) {
@@ -213,7 +181,7 @@ gpcv_elbo_kernel(const float* __restrict__ x, int x_per_row, const float* __rest
     const double id = row.inv_d(j);
     vm = vm.after(Affine{rj * rj, id * id});
   }
-  double var_next = exclusive_scan(vm, true, totals).b;
+  double var_next = volt::exclusive_scan<WARPS>(vm, true, totals).b;
 
   // (2) var over the chunk from its end: the terms of G, the stored var,
   // and the map lam_{lo-1} -> lam_{hi-1}
@@ -242,7 +210,7 @@ gpcv_elbo_kernel(const float* __restrict__ x, int x_per_row, const float* __rest
   if (grad) {
     // (3) the lam entering each chunk from the left (the scan's barriers
     // also make every thread's stored var visible to the block)
-    double lam = exclusive_scan(lm, false, totals).b;
+    double lam = volt::exclusive_scan<WARPS>(lm, false, totals).b;
 
     // (4) lam over the chunk: the gradients
     const double inv_n = 1.0 / n;

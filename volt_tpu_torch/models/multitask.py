@@ -29,12 +29,14 @@ from ..gp.kronecker import (kron_kl, kron_kl_bm_prior,
                             kron_posterior)
 from ..gp.variational import exp_laplace_inv_hessian, running_std_latent_init
 from ..kernels import BMKernel, FBMKernel, IndexKernel
-from ..likelihoods import MultitaskGaussianLikelihood
+from ..likelihoods import (MultitaskGaussianLikelihood,
+                           VolatilityGaussianLikelihood)
 from ..ops.bidiag import (bidiag_chol_from_tridiag, bidiag_solve_lower,
                           min_precision, takahashi_band)
 from ..ops.brownian import (future_grid_ok, min_kernel_eigenvalues,
                             min_kernel_project, nan_poison)
 from ..ops.chol import cholesky_solve, psd_safe_cholesky
+from ..ops.mt_gpcv_elbo import g3_takes, mt_tridiag_elbo
 from ..ops.mvn import sample_mvn
 from ..utils.profiling import annotate
 
@@ -364,9 +366,32 @@ class MultitaskVariationalGP(nn.Module):
             dx = torch.sum(rx * rx, dim=-1)
         return dx[..., :, None] * dt[..., None, :]
 
+    def _takes_g3(self, x, y, likelihood) -> bool:
+        """Whether :meth:`elbo` runs kernel G3: the tridiagonal family (so
+        the BM kernel) and the closed-form exp term, on tensors that
+        :func:`~volt_tpu_torch.ops.mt_gpcv_elbo.g3_takes`."""
+        return (self.q == "tridiag"
+                and isinstance(likelihood, VolatilityGaussianLikelihood)
+                and likelihood.param == "exp"
+                and g3_takes(x, y, self.index_kernel.covar_factor,
+                             self.variational_mean, self.q_log_d, self.q_e,
+                             self.variational_task_covar_root,
+                             self.mean_constants, self.index_kernel.raw_var,
+                             self.data_kernel.raw_vol))
+
     def elbo(self, x, y, likelihood, num_locs: int = 75):
         """The ELBO at inducing == train: the mean expected log-likelihood
-        of ``y (N, T)`` less ``KL / (N T)``."""
+        of ``y (N, T)`` less ``KL / (N T)``.  The tridiagonal family's,
+        with the closed-form exp term, is kernel G3 on float32 CUDA
+        tensors (one call for the ELBO and its gradient, no wait for the
+        card) and the plain composition elsewhere."""
+        if self._takes_g3(x, y, likelihood):
+            with annotate("mt_elbo"):
+                factor, task_diag = self.index_kernel.factor_and_diag()
+                return mt_tridiag_elbo(
+                    x, y, self.variational_mean, self.q_log_d, self.q_e,
+                    self.variational_task_covar_root, self.mean_constants,
+                    factor, task_diag, self.data_kernel.vol())
         with annotate("ell"):
             ell = torch.mean(likelihood.expected_log_prob(
                 y, self.variational_mean, self.marginal_variances(),

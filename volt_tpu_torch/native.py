@@ -3,7 +3,8 @@
 The sources in ``csrc/`` have a plain C interface.  On first use each is
 compiled with its own ``nvcc`` for Hopper (``sm_90a``), all at once, and
 the objects are linked into one shared library under ``_build/`` (keyed
-by a hash of the sources and flags, so an edited source rebuilds), which
+by a hash of the sources, their headers and the flags, so an edited source
+rebuilds), which
 is loaded with ``ctypes``.  Nothing here runs at import: the CPU never
 needs the library.
 
@@ -35,13 +36,15 @@ _HERE = Path(__file__).resolve().parent
 _CSRC = _HERE / "csrc"
 _BUILD = _HERE / "_build"
 _SOURCES = ("ewma_filter.cu", "kalman.cu", "volt_cov.cu", "gh_ell.cu",
-            "gpcv_elbo.cu")
+            "gpcv_elbo.cu", "mt_gpcv_elbo.cu")
+_HEADERS = ("affine_scan.cuh",)
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
+_L = ctypes.c_longlong
 # C entry points: argument types, the trailing stream included.
 _SIGNATURES = {
     "volt_ewma_filter": (_P, _P, _I, _I, _I, _D, _D, _D, _P),
@@ -52,6 +55,7 @@ _SIGNATURES = {
     "volt_gh_ell_forward": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "volt_gh_ell_backward": (_P, _P, _P, _P, _P, _P, _I, _P),
     "volt_gpcv_tridiag_elbo": (_P, _I, *(_P,) * 13, _I, _I, _P),
+    "volt_mt_gpcv_tridiag_elbo": (*(_P,) * 20, _L, _I, _I, _I, _P),
 }
 
 # What :func:`launch` passes as it is; everything else is a tensor.
@@ -76,7 +80,7 @@ def _nvcc() -> str:
 
 def _library_path() -> Path:
     h = hashlib.sha256(" ".join(_FLAGS).encode())
-    for name in _SOURCES:
+    for name in _SOURCES + _HEADERS:
         h.update(name.encode())
         h.update((_CSRC / name).read_bytes())
     return _BUILD / f"libvolt_kernels_{h.hexdigest()[:16]}.so"
