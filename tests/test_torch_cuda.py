@@ -1209,6 +1209,36 @@ def test_every_sync_of_a_tick_is_in_a_sync_span(cuda):
         s.startswith("sync:") for s in f[0])] == []
 
 
+def test_a_second_warm_tick_syncs_only_at_the_grid_check(cuda):
+    """In a second warm tick of the batched pipeline every sync that
+    PyTorch reports falls in ``sync:equispaced`` or a stage wait: the
+    fixed constants reached the card once, in the earlier calls."""
+    from volt_tpu_torch.parallel import (PipelineConfig, fit_forecast_batch,
+                                         warm_start)
+
+    b, n, h = 8, 200, 20
+    x = torch.arange(n, device="cuda") / 252.0
+    test_x = x[-1] + torch.arange(1, h + 1, device="cuda") / 252.0
+    ys = 100.0 * torch.exp(torch.cumsum(0.01 * torch.randn(
+        b, n + 2, device="cuda", generator=cuda), dim=-1))
+    cold = PipelineConfig(gpcv_iters=5, vol_iters=5, data_iters=5, k=20,
+                          nsample=64, output="quantiles")
+    warm = PipelineConfig(gpcv_iters=3, vol_iters=3, data_iters=3, k=20,
+                          nsample=64, output="quantiles")
+    _, aux = fit_forecast_batch(cuda, x, ys[:, :-1], test_x, cold)
+
+    def tick():
+        init = warm_start(aux, shift=1, n=n)
+        fit_forecast_batch(cuda, x, ys[:, 1:], test_x, warm, init)
+
+    tick()
+    found = sync_warnings(tick)
+    print("syncs of a second warm tick:", found)
+    assert found
+    waits = {"sync:equispaced", "sync:stage_start", "sync:stage_end"}
+    assert [f for f in found if not waits.intersection(f[0])] == []
+
+
 def test_multitask_tick_spans_on_the_card(cuda):
     """Over one warm tick of the multitask pipeline every sync that
     PyTorch reports falls inside a ``sync:`` span, and the Kronecker

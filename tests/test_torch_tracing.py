@@ -38,10 +38,10 @@ def _grids():
     return x, torch.arange(H, dtype=torch.float32) * DT + x[-1] + DT
 
 
-def _batch(init=None):
+def _batch(init=None, steps=STEPS):
     x, test_x = _grids()
-    cfg = PipelineConfig(gpcv_iters=STEPS, vol_iters=STEPS,
-                         data_iters=STEPS, k=10, nsample=S,
+    cfg = PipelineConfig(gpcv_iters=steps, vol_iters=steps,
+                         data_iters=steps, k=10, nsample=S,
                          output="quantiles")
     return fit_forecast_batch(torch.Generator().manual_seed(5), x,
                               _prices(B), test_x, cfg, init_params=init)
@@ -284,21 +284,66 @@ def test_equispaced_sync_counted_once_a_call():
     assert len({s.call_id for s in syncs}) == 2
 
 
-def test_a_warm_tick_counts_its_sync_sites():
-    """The ``sync:`` spans of a warm refit: the grid check, the three Adam
-    loops' step tables, the quadrature nodes of the predicted scale, the
-    integral's end weights and the fan's levels, each once (the sites a
-    census of the card's syncs over a tick finds, PERF.md §3)."""
-    _, aux = _batch()
+def _sync_sites(init=None, steps=STEPS):
+    """A batched call's result and its ``sync:`` spans, each as ``(name,
+    its parent's name)``."""
     with recording():
-        _batch(warm_start(aux, shift=1, n=N))
+        result = _batch(init, steps)
     rows = spans()
-    got = sorted((s.name, rows[s.parent].name) for s in rows
-                 if s.name.startswith("sync:"))
-    assert got == sorted([("sync:equispaced", "call"),
-                          ("sync:adam_tables", "gpcv"),
-                          ("sync:adam_tables", "vol"),
-                          ("sync:adam_tables", "data"),
-                          ("sync:gh_nodes", "scale"),
-                          ("sync:cumtrapz", "integral"),
-                          ("sync:levels", "fan")])
+    return result, sorted((s.name, rows[s.parent].name) for s in rows
+                          if s.name.startswith("sync:"))
+
+
+def test_a_warm_tick_counts_its_sync_sites():
+    """The ``sync:`` spans of a refit.  From an empty cache of constants a
+    cold call visits the grid check and each constant site once: the three
+    Adam loops' step tables (one table, the loops take as many steps), the
+    quadrature nodes of the predicted scale, the train mean's taps, the
+    integral's end weights and the fan's levels.  The first warm tick,
+    at fewer steps, visits the grid check and the one constant it misses,
+    the step tables; a second warm tick the grid check alone (the sites a
+    census of the card's syncs over a tick finds, PERF.md §3)."""
+    profiling._constants.clear()
+    (_, aux), cold = _sync_sites()
+    assert cold == sorted([("sync:equispaced", "call"),
+                           ("sync:adam_tables", "gpcv"),
+                           ("sync:gh_nodes", "scale"),
+                           ("sync:ewma_taps", "train_mean"),
+                           ("sync:cumtrapz", "integral"),
+                           ("sync:levels", "fan")])
+    (_, aux), first = _sync_sites(warm_start(aux, shift=1, n=N), STEPS - 1)
+    assert first == sorted([("sync:equispaced", "call"),
+                            ("sync:adam_tables", "gpcv")])
+    _, second = _sync_sites(warm_start(aux, shift=1, n=N), STEPS - 1)
+    assert second == [("sync:equispaced", "call")]
+
+
+def test_device_constant_is_built_and_copied_once():
+    """A hit returns the same tensor, and another dtype, key or site
+    another one; ``None``, ``"cpu"`` and ``torch.device("cpu")`` share an
+    entry; a miss records one ``sync:<site>`` span and makes the host
+    value once, a hit neither."""
+    made = []
+
+    def make(n):
+        made.append(n)
+        return np.arange(n)
+
+    with recording():
+        a = profiling.device_constant("t_a", make, 3, dtype=torch.float32)
+        same = [profiling.device_constant("t_a", make, 3,
+                                          dtype=torch.float32, device=d)
+                for d in (None, "cpu", torch.device("cpu"))]
+    assert [s.name for s in spans()] == ["sync:t_a"]
+    assert made == [3] and all(t is a for t in same)
+    torch.testing.assert_close(a, torch.arange(3, dtype=torch.float32))
+    with recording():
+        others = [profiling.device_constant("t_a", make, 3,
+                                            dtype=torch.float64),
+                  profiling.device_constant("t_a", make, 4,
+                                            dtype=torch.float32),
+                  profiling.device_constant("t_b", make, 3,
+                                            dtype=torch.float32)]
+    assert [s.name for s in spans()] == ["sync:t_a", "sync:t_a", "sync:t_b"]
+    assert len({id(t) for t in [a, *others]}) == 4
+    assert made == [3, 3, 4, 3]

@@ -23,7 +23,7 @@ def entry(device="cuda"):
     runs kernels K1 (the EWMA mean) and S1 (the Kalman MLL and filter)."""
     from .models.bmgp import BMGP
     from .models.volt import VoltGP, make_mean
-    from .rollouts import _rollout_volt_scan, sample_vol_paths
+    from .rollouts import _rollout, sample_vol_paths
 
     n, h, s = 128, 16, 32
     dt = 1.0 / 252
@@ -48,9 +48,7 @@ def entry(device="cuda"):
             pred_vol = sample_vol_paths(vol_state, test_x, s, generator,
                                         assume_future=True)
             zs = torch.randn(s, h, device=device, generator=generator)
-            samples = _rollout_volt_scan(
-                model, torch.zeros((), device=device), test_x, pred_vol, zs,
-                False, 0.0)
+            samples = _rollout(model, None, test_x, pred_vol, zs, None)
         return mll, samples
 
     return step, (generator, train_x, train_y, vol, test_x)

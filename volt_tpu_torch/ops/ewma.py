@@ -21,7 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import native
-from ..utils.profiling import annotate
+from ..utils.profiling import device_constant
 
 __all__ = [
     "ewma_weights",
@@ -42,16 +42,10 @@ def _ewma_weights_np(k: int):
     return w / w.sum()
 
 
-@lru_cache(maxsize=64)
 def ewma_weights(k: int, dtype=torch.float32, device=None):
-    """Normalised taps, oldest first, computed on the host in float64.
-
-    Cached per ``(k, dtype, device)``, so a filter call on the card does
-    not wait on a host-to-device copy of its taps; callers must not
-    modify the returned tensor.
-    """
-    with annotate("sync:ewma_taps"):
-        return torch.tensor(_ewma_weights_np(k), dtype=dtype, device=device)
+    """Normalised taps, oldest first, from float64: a read-only constant."""
+    return device_constant("ewma_taps", _ewma_weights_np, k, dtype=dtype,
+                           device=device)
 
 
 @lru_cache(maxsize=64)

@@ -14,12 +14,11 @@ kernel over them.  On CPU tensors the plain version (the node sum of
 from __future__ import annotations
 
 import math
-from functools import lru_cache
 
-import numpy as np
 import torch
 
 from .. import native
+from ..utils.profiling import device_constant
 from .quadrature import DEFAULT_NUM_LOCS, _hermgauss, expected_value
 
 __all__ = ["exp_scale", "exp_log_prob", "gh_expected_log_prob",
@@ -78,13 +77,10 @@ def var_grad_resolution(y, mean, var, g, num_locs: int = DEFAULT_NUM_LOCS):
         return num_locs * eps * g.abs() * terms / torch.clamp(sd, min=1e-20)
 
 
-@lru_cache(maxsize=16)
 def _nodes(num_locs: int, device):
-    """``[x_0..x_{L-1}, w_0..w_{L-1}]`` in float32 on ``device``, cast once
-    from the float64 host nodes; callers must not modify it."""
-    x, w = _hermgauss(num_locs)
-    return torch.tensor(np.concatenate([x, w]), dtype=torch.float32,
-                        device=device)
+    """The quadrature's read-only nodes, ``[x, w]`` flattened, in float32."""
+    return device_constant("gh_nodes", _hermgauss, num_locs,
+                           dtype=torch.float32, device=device).reshape(-1)
 
 
 def _check(name, num_locs, *tensors):

@@ -7,31 +7,27 @@ with weights ``w_i / sqrt(pi)``.
 
 from __future__ import annotations
 
-from functools import lru_cache
-
 import numpy as np
 import torch
 
-from ..utils.profiling import annotate
+from ..utils.profiling import device_constant
 
 __all__ = ["gauss_hermite_nodes", "expected_value", "DEFAULT_NUM_LOCS"]
 
 DEFAULT_NUM_LOCS = 75
 
 
-@lru_cache(maxsize=8)
 def _hermgauss(n: int):
+    """``[x, w / sqrt(pi)]``, shape ``(2, n)``, in float64."""
     x, w = np.polynomial.hermite.hermgauss(n)
-    return x, w / np.sqrt(np.pi)
+    return np.stack([x, w / np.sqrt(np.pi)])
 
 
 def gauss_hermite_nodes(num_locs: int = DEFAULT_NUM_LOCS,
                         dtype=torch.float32, device=None):
-    """Return ``(locations, normalized_weights)`` as tensors."""
-    x, w = _hermgauss(num_locs)
-    with annotate("sync:gh_nodes"):
-        return (torch.tensor(x, dtype=dtype, device=device),
-                torch.tensor(w, dtype=dtype, device=device))
+    """``(locations, normalized_weights)``: rows of one read-only tensor."""
+    return tuple(device_constant("gh_nodes", _hermgauss, num_locs,
+                                 dtype=dtype, device=device))
 
 
 def expected_value(fn, mean, var, num_locs: int = DEFAULT_NUM_LOCS):

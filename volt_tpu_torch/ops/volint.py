@@ -11,22 +11,25 @@ has the closed-form Cholesky factor :func:`brownian_cholesky`.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from ..utils.profiling import annotate
+from ..utils.profiling import device_constant
 
 __all__ = ["cumtrapz_weights", "vol_integral", "min_index_covariance",
            "brownian_cholesky"]
 
 
+def _halved_ends(n: int):
+    """``[0.5, 1, ..., 1, 0.5]`` of length ``n >= 2``."""
+    return np.r_[0.5, np.ones(n - 2), 0.5]
+
+
 def cumtrapz_weights(x):
     """Reference ``CumTrapz`` weights: uniform ``dx``, both endpoints halved."""
     dx = (x[..., 1] - x[..., 0])[..., None]
-    n = x.shape[-1]
-    scale = torch.ones(n, dtype=x.dtype, device=x.device)
-    with annotate("sync:cumtrapz"):  # each write copies a host scalar
-        scale[0] = 0.5
-        scale[-1] = 0.5
+    scale = device_constant("cumtrapz", _halved_ends, x.shape[-1],
+                            dtype=x.dtype, device=x.device)
     return dx.expand(x.shape) * scale
 
 

@@ -26,7 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .utils.profiling import annotate
+from .utils.profiling import device_constant
 
 __all__ = ["Adam"]
 
@@ -41,6 +41,12 @@ def _sqrt(a):
     return torch.sqrt(a)
 
 
+def _bias_tables(steps: int, b1: float, b2: float, dt):
+    """optax's ``1 - b**t``, ``t = 1..steps``, in the numpy dtype ``dt``."""
+    t = np.arange(1, steps + 1).astype(dt)
+    return np.stack([dt.type(1) - dt.type(b) ** t for b in (b1, b2)])
+
+
 class Adam:
     """``optax.adam(lr, b1, b2, eps)`` over ``params`` for at most ``steps``
     calls of :meth:`step`, each after the gradients are in ``.grad``."""
@@ -51,15 +57,11 @@ class Adam:
         self.lr, self.b1, self.b2, self.eps = lr, b1, b2, eps
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
-        # optax's 1 - b**t in the parameters' precision, t = 1..steps
         like = self.params[0] if self.params else torch.zeros(())
         dt = torch.empty((), dtype=like.dtype).numpy().dtype
-        t = np.arange(1, max(steps, 1) + 1).astype(dt)
-        # a copy from the host's pageable memory waits for the device
-        with annotate("sync:adam_tables"):
-            self.c1, self.c2 = (torch.tensor(dt.type(1) - dt.type(b) ** t,
-                                             device=like.device)
-                                for b in (b1, b2))
+        self.c1, self.c2 = device_constant(
+            "adam_tables", _bias_tables, max(steps, 1), b1, b2, dt,
+            dtype=like.dtype, device=like.device)
         self.t = 0
 
     def zero_grad(self):

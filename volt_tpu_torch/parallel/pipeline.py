@@ -36,10 +36,10 @@ from ..convert import load_jax_params, params_tree
 from ..models.bmgp import BMGP
 from ..models.gpcv import GPCVModel
 from ..models.volt import VoltGP, make_mean
-from ..rollouts import _rollout_volt_scan, sample_vol_paths
+from ..rollouts import _rollout, sample_vol_paths
 from ..train import (_fit_bmgp, _fit_gpcv, _fit_volt, _is_equispaced,
                      scaled_returns)
-from ..utils.profiling import annotate, annotated, stage
+from ..utils.profiling import annotate, annotated, device_constant, stage
 
 __all__ = ["PipelineConfig", "fit_forecast", "fit_forecast_batch",
            "shard_batch", "warm_start"]
@@ -80,6 +80,15 @@ _FIELDS = (
 )
 
 
+def _check_fields(config, fields):
+    """``ValueError`` for a field outside its values in ``fields``."""
+    for field, values in fields:
+        value = getattr(config, field)
+        if value not in values:
+            raise ValueError(f"{type(config).__name__}.{field} must be one "
+                             f"of {values}, got {value!r}")
+
+
 def _resolve_config(config: PipelineConfig) -> PipelineConfig:
     """The JAX package's downgrades (a non-BM kernel takes the dense GPCV
     family and the Kalman vol MLL; NGVI needs the BM kernel and the
@@ -96,11 +105,7 @@ def _resolve_config(config: PipelineConfig) -> PipelineConfig:
     if config.gpcv_opt == "ngvi" and (config.kernel != "bm"
                                       or config.gpcv_q != "tridiag"):
         config = dataclasses.replace(config, gpcv_opt="adam")
-    for field, values in _FIELDS:
-        value = getattr(config, field)
-        if value not in values:
-            raise ValueError(f"PipelineConfig.{field} must be one of "
-                             f"{values}, got {value!r}")
+    _check_fields(config, _FIELDS)
     make_mean(config.mean_func, k=config.k)  # raises for unknown means
     return config
 
@@ -151,6 +156,30 @@ def _local_paths(mesh, nsample: int) -> int:
         raise ValueError(f"nsample={nsample} does not split over the "
                          f"{paths}-way 'path' mesh axis")
     return nsample // paths
+
+
+@annotated("fan")
+def _fan(samples, losses, config, mesh):
+    """Both entries' tail: ``(out, ok, stats)``, the paths or the fan and
+    its ``aux`` entries.  ``ok``: an asset's paths (a diverged asset stays
+    in its lanes) and each final loss in ``losses`` finite, a scalar loss
+    for every asset."""
+    quantiles = config.output == "quantiles"
+    if quantiles and mesh is not None:
+        samples = mesh.gather(samples, (None, "path"))
+    bad = ~torch.all(torch.isfinite(samples).flatten(-2), dim=-1)
+    if not quantiles and mesh is not None:
+        bad = mesh.all_reduce(bad.to(samples.dtype), "path") > 0
+    ok = ~bad
+    for loss in losses:
+        ok = ok & torch.isfinite(loss)
+    if not quantiles:
+        return samples, ok, {}
+    levels = device_constant("levels", tuple, config.quantile_levels,
+                             dtype=samples.dtype, device=samples.device)
+    return (torch.quantile(samples, levels, dim=-2).movedim(0, -2), ok,
+            {"forecast_mean": torch.mean(samples, dim=-2),
+             "forecast_std": torch.std(samples, dim=-2, correction=0)})
 
 
 @annotated("call")
@@ -258,9 +287,6 @@ def fit_forecast_batch(generator, train_x, train_ys, test_x,
 
     # ---- stage 4: Monte-Carlo rollout -------------------------------------
     with stage("rollout", seconds, device), torch.no_grad():
-        use_theta = config.theta is not None
-        latent_mean = (torch.mean(torch.log(train_ys), dim=-1) if use_theta
-                       else torch.zeros((), dtype=dtype, device=device))
         h = test_x.shape[-1]
         if noise is None:
             vol_noise = None
@@ -276,29 +302,10 @@ def fit_forecast_batch(generator, train_x, train_ys, test_x,
             zs = (torch.randn(*batch, nsample, h, dtype=dtype,
                               device=device, generator=draw_generator)
                   if noise is None else noise["zs"])
-            samples = _rollout_volt_scan(model, latent_mean, test_x,
-                                         pred_vol, zs, use_theta,
-                                         config.theta if use_theta else 0.0)
-        with annotate("fan"):
-            if config.output == "quantiles" and mesh is not None:
-                samples = mesh.gather(samples, (None, "path"))
-            # per-asset failure flag: a diverged asset stays in its lanes
-            bad = ~torch.all(torch.isfinite(samples).flatten(-2), dim=-1)
-            if config.output == "samples" and mesh is not None:
-                bad = mesh.all_reduce(bad.to(dtype), "path") > 0
-            ok = (~bad & torch.isfinite(gpcv_losses[-1])
-                  & torch.isfinite(vol_losses[-1])
-                  & torch.isfinite(data_losses[-1]))
-            if config.output == "quantiles":
-                with annotate("sync:levels"):
-                    levels = torch.tensor(config.quantile_levels,
-                                          dtype=dtype, device=device)
-                out = torch.quantile(samples, levels,
-                                     dim=-2).movedim(0, -2)
-                mean = torch.mean(samples, dim=-2)
-                std = torch.std(samples, dim=-2, correction=0)
-            else:
-                out = samples
+            samples = _rollout(model, train_ys, test_x, pred_vol, zs,
+                               config.theta)
+        out, ok, stats = _fan(samples, (gpcv_losses[-1], vol_losses[-1],
+                                        data_losses[-1]), config, mesh)
 
     aux = {
         "ok": ok,
@@ -313,9 +320,8 @@ def fit_forecast_batch(generator, train_x, train_ys, test_x,
         "vol_params": params_tree(bm),
         "gpcv_params": params_tree(gpcv),
         "stage_seconds": seconds,
+        **stats,
     }
-    if config.output == "quantiles":
-        aux["forecast_mean"], aux["forecast_std"] = mean, std
     return out, aux
 
 
@@ -347,6 +353,17 @@ def _shift_tail(a, shift: int):
     return torch.cat([a[..., shift:], pad], dim=-1)
 
 
+def _shift_interior(q_log_d, shift: int):
+    """Shift ``q_log_d``'s interior; its boundary (last) entry stays."""
+    return torch.cat([_shift_tail(q_log_d[..., :-1], shift),
+                      q_log_d[..., -1:]], dim=-1)
+
+
+def _shift_root(root, shift: int):
+    """Shift a dense root along both axes, then re-``tril`` it."""
+    return torch.tril(_shift_tail(_shift_tail(root, shift).mT, shift).mT)
+
+
 @annotated("warm_start")
 def warm_start(aux, shift: int = 0, n: int | None = None):
     """``init_params`` for :func:`fit_forecast_batch` from a previous fit's
@@ -371,11 +388,9 @@ def warm_start(aux, shift: int = 0, n: int | None = None):
                 continue
             if k == "chol_variational_covar":
                 # by name: its last axis is also n
-                cols = _shift_tail(v, shift)
-                gpcv[k] = torch.tril(_shift_tail(cols.mT, shift).mT)
+                gpcv[k] = _shift_root(v, shift)
             elif k == "q_log_d" and v.shape[-1] == n:
-                interior = _shift_tail(v[..., :-1], shift)
-                gpcv[k] = torch.cat([interior, v[..., -1:]], dim=-1)
+                gpcv[k] = _shift_interior(v, shift)
             elif v.shape[-1] in (n, n - 1):  # per-datum vectors
                 gpcv[k] = _shift_tail(v, shift)
     return {"gpcv": gpcv, "vol": aux["vol_params"],

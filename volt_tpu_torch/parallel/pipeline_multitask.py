@@ -34,12 +34,13 @@ import torch
 from ..convert import load_jax_params, params_tree
 from ..models.multitask import MultitaskBMGP
 from ..models.volt import VoltGP, VoltState, make_mean
-from ..rollouts import _rollout_volt_scan
+from ..rollouts import _rollout
 from ..train import (_fit_multitask_vol, _fit_volt, _multitask_gpcv,
                      _multitask_scale, adam_loop, scaled_returns)
 from ..utils.profiling import annotate, annotated, stage
-from .pipeline import (_check_min_length, _check_spectral_grid, _local_paths,
-                       _shard_rows, _shift_tail)
+from .pipeline import (_check_fields, _check_min_length, _check_spectral_grid,
+                       _fan, _local_paths, _shard_rows, _shift_interior,
+                       _shift_root, _shift_tail)
 
 __all__ = ["MultitaskPipelineConfig", "fit_forecast_multitask",
            "warm_start_multitask"]
@@ -72,14 +73,12 @@ class MultitaskPipelineConfig:
     integral_rule: str = "reference"
 
 
-def _check_config(config: MultitaskPipelineConfig):
-    for field, values in (("gpcv_q", ("tridiag", "full")),
-                          ("gpcv_param", ("exp", "cv")),
-                          ("vol_mll", ("spectral", "kalman")),
-                          ("output", ("samples", "quantiles"))):
-        if getattr(config, field) not in values:
-            raise ValueError(f"MultitaskPipelineConfig.{field} must be one "
-                             f"of {values}, got {getattr(config, field)!r}")
+_FIELDS = (
+    ("gpcv_q", ("tridiag", "full")),
+    ("gpcv_param", ("exp", "cv")),
+    ("vol_mll", ("spectral", "kalman")),
+    ("output", ("samples", "quantiles")),
+)
 
 
 @annotated("call")
@@ -121,7 +120,7 @@ def fit_forecast_multitask(generator, train_x, train_ys, test_x,
     rank's block, the fan of all the paths; the joint parameters are
     whole.  With ``noise`` the result equals the unsharded call's.
     """
-    _check_config(config)
+    _check_fields(config, _FIELDS)
     _check_min_length(train_x)
     _check_spectral_grid(train_x, config)
     device, dtype = train_ys.device, train_ys.dtype
@@ -204,35 +203,13 @@ def fit_forecast_multitask(generator, train_x, train_ys, test_x,
             else:
                 zs = (noise["zs"] if mesh is None
                       else mesh.shard(noise["zs"], ("asset", "path")))
-            use_theta = config.theta is not None
-            latent = (torch.mean(torch.log(train_ys), dim=-1) if use_theta
-                      else torch.zeros(len(train_ys), dtype=dtype,
-                                       device=device))
             volt_state = VoltState(module=volt, train_x=train_x,
                                    train_y=log_ys,
                                    log_vol_path=torch.log(vols))
-            samples = _rollout_volt_scan(volt_state, latent, test_x,
-                                         pred_vol, zs, use_theta,
-                                         config.theta if use_theta else 0.0)
-        with annotate("fan"):
-            if config.output == "quantiles" and mesh is not None:
-                samples = mesh.gather(samples, (None, "path"))
-            bad = ~torch.all(torch.isfinite(samples).flatten(-2), dim=-1)
-            if config.output == "samples" and mesh is not None:
-                bad = mesh.all_reduce(bad.to(dtype), "path") > 0
-            ok = (~bad & torch.isfinite(data_losses[-1])
-                  & torch.isfinite(gpcv_losses[-1])
-                  & torch.isfinite(vol_losses[-1]))
-            if config.output == "quantiles":
-                with annotate("sync:levels"):
-                    levels = torch.tensor(config.quantile_levels,
-                                          dtype=dtype, device=device)
-                out = torch.quantile(samples, levels,
-                                     dim=-2).movedim(0, -2)
-                mean = torch.mean(samples, dim=-2)
-                std = torch.std(samples, dim=-2, correction=0)
-            else:
-                out = samples
+            samples = _rollout(volt_state, train_ys, test_x, pred_vol, zs,
+                               config.theta)
+        out, ok, stats = _fan(samples, (data_losses[-1], gpcv_losses[-1],
+                                        vol_losses[-1]), config, mesh)
 
     aux = {
         "ok": ok,
@@ -247,9 +224,8 @@ def fit_forecast_multitask(generator, train_x, train_ys, test_x,
         "vol_params": params_tree(mt_vol),
         "volt_params": params_tree(volt),
         "stage_seconds": seconds,
+        **stats,
     }
-    if config.output == "quantiles":
-        aux["forecast_mean"], aux["forecast_std"] = mean, std
     return out, aux
 
 
@@ -272,13 +248,10 @@ def warm_start_multitask(aux, shift: int = 0, n: int | None = None):
         model["variational_mean"] = _shift_tail(
             model["variational_mean"].mT, shift).mT
         if "q_log_d" in model:
-            v = model["q_log_d"]
-            model["q_log_d"] = torch.cat([_shift_tail(v[..., :-1], shift),
-                                          v[..., -1:]], dim=-1)
+            model["q_log_d"] = _shift_interior(model["q_log_d"], shift)
             model["q_e"] = _shift_tail(model["q_e"], shift)
         if "variational_covar_root" in model:
-            cols = _shift_tail(model["variational_covar_root"], shift)
-            model["variational_covar_root"] = torch.tril(
-                _shift_tail(cols.mT, shift).mT)
+            model["variational_covar_root"] = _shift_root(
+                model["variational_covar_root"], shift)
     return {"gpcv": {"model": model, "lik": packed["lik"]},
             "vol": aux["vol_params"], "volt": aux["volt_params"]}

@@ -147,6 +147,15 @@ def _rollout_volt_scan(model: VoltState, latent_mean, test_x, pred_vol, zs,
     return torch.stack(out, dim=-1)
 
 
+def _rollout(model: VoltState, train_y, test_x, pred_vol, zs, theta):
+    """:func:`_rollout_volt_scan`, each step's mean reverting by ``theta``
+    (unless ``None``) toward ``mean(log(train_y))``."""
+    latent = (None if theta is None else
+              torch.mean(torch.log(train_y.to(model.train_y.dtype)), dim=-1))
+    return _rollout_volt_scan(model, latent, test_x, pred_vol, zs,
+                              theta is not None, theta or 0.0)
+
+
 def _draw(generator, like, *shape):
     return torch.randn(*shape, dtype=like.dtype, device=like.device,
                        generator=generator)
@@ -170,18 +179,13 @@ def rollouts(generator, model: VoltState, train_x, train_y, test_x,
             "non-volt rollouts live in volt_tpu_torch.rollouts.nonvol_rollouts")
     with torch.no_grad():
         y = model.train_y
-        use_theta = theta is not None
-        latent = (torch.mean(torch.log(train_y.to(y.dtype)), dim=-1)
-                  if use_theta else torch.zeros((), dtype=y.dtype,
-                                                device=y.device))
         vol_noise = None if noise is None else (noise["vol_r0"],
                                                 noise["vol_z"])
         pred_vol = sample_vol_paths(model.vol_state, test_x, nsample,
                                     generator, vol_noise, assume_future)
         zs = (_draw(generator, y, *pred_vol.shape) if noise is None
               else noise["zs"])
-        return _rollout_volt_scan(model, latent, test_x, pred_vol, zs,
-                                  use_theta, theta if use_theta else 0.0)
+        return _rollout(model, train_y, test_x, pred_vol, zs, theta)
 
 
 # ---------------------------------------------------------------------------
@@ -296,12 +300,7 @@ def rollouts_multitask(generator, volt_state: VoltState, mt_vol_state,
         pred_vol = torch.exp(log_vols.movedim(-1, 0))  # (T, S, H)
         zs = (_draw(generator, y, num_tasks, nsample, h) if noise is None
               else noise["zs"])
-        use_theta = theta is not None
-        latent = (torch.mean(torch.log(train_ys.to(y.dtype)), dim=-1)
-                  if use_theta else torch.zeros(num_tasks, dtype=y.dtype,
-                                                device=y.device))
-        return _rollout_volt_scan(volt_state, latent, test_x, pred_vol, zs,
-                                  use_theta, theta if use_theta else 0.0)
+        return _rollout(volt_state, train_ys, test_x, pred_vol, zs, theta)
 
 
 # ---------------------------------------------------------------------------

@@ -18,6 +18,7 @@ The span names the pipeline records, and the metrics that read them,
 are listed in PERF.md.  A span named ``sync:<site>`` encloses a place
 where the program waits for the card; those spans count the visits to
 each such site (a visit may make more than one of PyTorch's syncs).
+``device_constant`` is the one way a fixed constant reaches the card.
 
 ``trace`` records the CPU and CUDA activity of a block into a Chrome
 trace, with the block's spans as its regions, and ``timed`` /
@@ -47,6 +48,8 @@ _buffer = []  # [name, start_ns, end_ns, parent, call_id] rows, by start
 _open = []  # (row index, call_id) of the open spans, innermost last
 _call_ids = itertools.count()
 _OFF = contextlib.nullcontext()
+_CONSTANTS = 256
+_constants = collections.OrderedDict()  # (site, key, dtype, device) -> tensor
 
 
 class _Span:
@@ -91,6 +94,25 @@ def annotated(name: str):
                 return fn(*args, **kwargs)
         return spanned
     return wrap
+
+
+def device_constant(site: str, make, *key, dtype, device=None):
+    """``make(*key)``, host data, as a ``dtype`` tensor on ``device``
+    (``None``: the CPU), the same tensor for a ``(site, key, dtype, device)``
+    among the last ``_CONSTANTS`` used.  Only a miss copies, in a span
+    ``sync:<site>``.  Callers share the tensor: read it, never write it."""
+    device = torch.device("cpu" if device is None else device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    entry = (site, key, dtype, device)
+    if entry not in _constants:
+        with annotate(f"sync:{site}"):
+            _constants[entry] = torch.tensor(make(*key), dtype=dtype,
+                                             device=device)
+        if len(_constants) > _CONSTANTS:
+            _constants.popitem(last=False)
+    _constants.move_to_end(entry)
+    return _constants[entry]
 
 
 @contextlib.contextmanager
