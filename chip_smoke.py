@@ -55,7 +55,12 @@ Phases, each printed with its time; any failure exits non-zero:
    gradient in one call, float64 inside: against the plain composition in
    float64 on the same float32 values at (n, T, r) = (999, 505, 1),
    (64, 8, 2) and (3, 2, 1), each within 1e-5 of its largest value; timed
-   at (999, 505, 1) as G1);
+   at (999, 505, 1) as G1); G4 (the multitask vol GP's Woodbury MLL and
+   its gradient in one call, float64 inside, its T x T coupling float32:
+   against the plain composition in float64 on the same float32 values at
+   (N, T, r) = (999, 505, 1) with c < 0, the MLL within 1e-6 of its value
+   and each gradient within 1e-4 of its largest entry; timed there, the
+   plain composition's forward and backward beside);
 4. the main path at full width: ``fit_forecast_batch`` on 64 SABR series
    of 999 returns with the ``PipelineConfig`` defaults (300/300/300 Adam
    steps, EWMA k=300, 1000 paths x 100 steps, quantile fan), then once
@@ -245,7 +250,7 @@ process has not), ``gpcv_full``, ``gpcv_cv``, ``gpcv_sparse``,
 ``option_pricing``, ``fbm_path``, ``multitask``, ``long_main_path``,
 ``baselines``, ``mesh``, ``evaluation``, ``timing``,
 ``gpcv_elbo_times`` (G1, in a tree that has it), ``mt_gpcv_elbo_times``
-(G3, likewise); a phase named twice
+(G3, likewise), ``mt_vol_mll_times`` (G4, likewise); a phase named twice
 runs twice, the first cold) in
 four fresh processes, in the trees parent, this one, this one, parent,
 each with its own package and kernels and this file's phases and
@@ -1126,6 +1131,122 @@ def time_mt_gpcv_elbo(torch, shapes=G3_SHAPES[:1]):
             f"the device (bound {r_['bound_ms']:.4f} ms)"
             for way, r_ in rec.items() if way != "plain_ms")
             + f"; plain forward and backward {rec['plain_ms']:.4f} ms a call")
+    return times
+
+
+def g4_args(torch, g, n, t, r):
+    """G4's tensors as the multitask vol stage gives them: the spectral
+    cache of log vols on a random walk over the grid from 0 (c < 0, as
+    the live cell's), a multitask vol GP's parameters moved off its init
+    at random."""
+    from volt_tpu_torch.models.multitask import MultitaskBMGP
+
+    model = MultitaskBMGP(t, rank=r).init(torch.float32, "cuda",
+                                          torch.Generator().manual_seed(2))
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(0.3 * torch.randn(p.shape, device="cuda", generator=g))
+    x = torch.arange(n, device="cuda", dtype=torch.float32) / 252.0
+    y = math.log(0.2) + torch.cumsum(
+        0.05 * torch.randn(n, t, device="cuda", generator=g), dim=0)
+    cache = model.spectral_cache(x, y)
+    factor, task_diag = model.task_kernel.factor_and_diag()
+    return tuple(a.detach().contiguous() for a in (
+        *(cache[k] for k in ("p_y", "p_x", "mu", "w", "dx", "x0")),
+        model.data_kernel.vol(), factor, task_diag,
+        model.likelihood.noise()))
+
+
+def mt_vol_mll_plain(torch, p_y, p_x, mu, w, dx, x0, vol, factor,
+                     task_diag, noise):
+    """The plain composition that ``MultitaskBMGP.mll_spectral`` runs on
+    the CPU, on G4's arguments: the MLL ``/ (N T)``."""
+    from volt_tpu_torch.gp.kronecker import \
+        kron_mvn_log_prob_blockdiag_lowrank
+
+    n, t = p_y.shape
+    vol = vol[..., 0]
+    diag_b = torch.sum(factor * factor, dim=-1) + task_diag
+    r_tilde = p_y + (0.5 * vol ** 2 * p_x)[:, None] * diag_b
+    lp = kron_mvn_log_prob_blockdiag_lowrank(
+        r_tilde, vol * dx * mu, vol * (x0 - dx), factor, task_diag,
+        noise[..., 0], w)
+    return lp / (n * t)
+
+
+G4_SHAPES = ((999, 505, 1),)
+G4_GRADS = ("vol", "factor", "task_diag", "noise")
+
+
+def check_mt_vol_mll(torch):
+    """G4 against the plain composition in float64 on the same float32
+    values at the shapes of ``G4_SHAPES`` (grid from 0, so c < 0 as in the
+    live cell): the MLL within 1e-6 of its float64 value, each of its four
+    gradients within 1e-4 of its largest float64 entry (the card tests'
+    limits: the coupling's LU is float32, as on the plain path)."""
+    from volt_tpu_torch.ops import mt_vol_mll as tmv
+
+    g = torch.Generator(device="cuda").manual_seed(16)
+    worst = 0.0
+    for n, t, r in G4_SHAPES:
+        args = g4_args(torch, g, n, t, r)
+        out, grads = tmv.mt_vol_mll_cuda(*args)
+        ins = [a.double().requires_grad_() for a in args[6:]]
+        want = mt_vol_mll_plain(torch, *(a.double() for a in args[:6]),
+                                *ins)
+        wgrads = torch.autograd.grad(want, ins)
+        errs = {"mll": abs(out.item() - want.item()) / abs(want.item())}
+        for name, a, w in zip(G4_GRADS, grads, wgrads):
+            errs[name] = (a.double() - w).abs().max().item() \
+                / w.abs().max().item()
+        print(f"   G4 {(n, t, r)}: error over the largest float64 value: "
+              + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+        if not (errs.pop("mll") <= 1e-6 and max(errs.values()) <= 1e-4):
+            fail(f"G4 disagrees with the float64 composition at {(n, t, r)}")
+        worst = max(worst, *errs.values())
+    times = time_mt_vol_mll(torch)
+    main = times[str(G4_SHAPES[0])]
+    return {"name": "mt_vol_woodbury_mll", "route": "cuda",
+            "source": "volt_tpu_torch/csrc/mt_vol_mll.cu",
+            "replaces": "none: the composition in "
+                        "MultitaskBMGP.mll_spectral",
+            "symbol": "volt_mt_vol_woodbury_mll", "max_rel_err": worst,
+            **{k: main[k] for k in ("ms", "device_ms", "bound_ms",
+                                    "bound_by")},
+            "plain_ms": main["plain_ms"], "library_ms": None,
+            "library_device_ms": None, "by_shape": times}
+
+
+def time_mt_vol_mll(torch, shapes=G4_SHAPES):
+    """G4 per call (its two C calls and the coupling's products, LU and
+    solve: the MLL and its gradient, a vol Adam step's call) and on the
+    device alone; the plain composition's forward and backward per call
+    beside.  Its bound: every input read and every output written once,
+    or the coupling's operations, the larger: the two products that form
+    S and m (2 N r T^2 and 2 T^3), the LU (2 T^3 / 3), the solve of its
+    2 T right-hand sides (4 T^3) and the product Y (2 N r T^2)."""
+    from volt_tpu_torch.ops import mt_vol_mll as tmv
+
+    g = torch.Generator(device="cuda").manual_seed(15)
+    times = {}
+    for n, t, r in shapes:
+        args = g4_args(torch, g, n, t, r)
+        rec = {"ms": cuda_ms(torch, lambda: tmv.mt_vol_mll_cuda(*args)),
+               "device_ms": device_ms(torch, tmv.mt_vol_mll_cuda, *args)}
+        reads = n * t + 3 * n + 3 + t * r + t + 1
+        writes = 1 + 1 + t * r + t + 1
+        ops = 4 * n * r * t ** 2 + 6 * t ** 3 + 2 * t ** 3 / 3
+        rec.update(bound_ms(4 * (reads + writes), ops, FP32_OPS_PER_S))
+        rec["share"] = rec["bound_ms"] / rec["device_ms"]
+        ins = [a.clone().requires_grad_() for a in args[6:]]
+        rec["plain_ms"] = cuda_ms(torch, lambda: torch.autograd.grad(
+            mt_vol_mll_plain(torch, *args[:6], *ins), ins))
+        times[str((n, t, r))] = rec
+        print(f"   G4 {(n, t, r)}: {rec['ms']:.4f} ms a call, "
+              f"{rec['device_ms']:.4f} ms on the device (bound "
+              f"{rec['bound_ms']:.4f} ms by {rec['bound_by']}, "
+              f"{100 * rec['share']:.2f}%); plain forward and backward "
+              f"{rec['plain_ms']:.4f} ms a call")
     return times
 
 
@@ -3114,7 +3235,8 @@ def smoke():
     s1 = time_kalman(torch, vt)
     s1[0]["max_abs_err"], s1[1]["max_abs_err"] = fwd_err, bwd_err
     kernels = [k1, *s1, check_volt_cov(torch), *check_gh_ell(torch),
-               check_gpcv_elbo(torch), check_mt_gpcv_elbo(torch)]
+               check_gpcv_elbo(torch), check_mt_gpcv_elbo(torch),
+               check_mt_vol_mll(torch)]
     done(t0)
 
     t0 = phase("main path: fit_forecast_batch, B=64, n=999, defaults")
@@ -3174,6 +3296,7 @@ def smoke():
                "warm")
     mt_launches, multitask = run_multitask(torch, vt, native)
     paths["mt_gpcv_tridiag_elbo"] = ("fit_forecast_multitask", mt_launches)
+    paths["mt_vol_woodbury_mll"] = ("fit_forecast_multitask", mt_launches)
     done(t0)
 
     t0 = phase("long_main_path: fit_forecast_batch, B=16, n=16000")
@@ -3247,6 +3370,7 @@ PHASES = {
                                                "gh_ell": time_gh_ell(torch)},
     "gpcv_elbo_times": lambda torch, vt, native: time_gpcv_elbo(torch),
     "mt_gpcv_elbo_times": lambda torch, vt, native: time_mt_gpcv_elbo(torch),
+    "mt_vol_mll_times": lambda torch, vt, native: time_mt_vol_mll(torch),
     "main_path": lambda torch, vt, native: run_main_path(torch, vt,
                                                          native)[1],
     "fixed_cov": lambda torch, vt, native: run_fixed_cov(torch, vt,

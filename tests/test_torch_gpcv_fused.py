@@ -11,7 +11,6 @@ from torch import nn
 
 from volt_tpu_torch import native
 from volt_tpu_torch.models import GPCVModel
-from volt_tpu_torch.ops import gpcv_elbo
 
 BATCH = (3, 2)
 DT = 1.0 / 252
@@ -172,7 +171,10 @@ def test_g1_closed_form_equals_autograd_of_the_elbo(n, kind):
           np.max(grads["vol_terms"] * dsig))
 
 
-# (what the model is, what the tensors are) -> whether elbo takes G1
+# (what the model is, what the tensors are) -> whether elbo takes G1: on
+# the card every call of the family goes to G1, whose wrapper raises on
+# float64 (tests/test_torch_cuda.py) and on a gradient wanted for the grid
+# or the returns (here)
 PREDICATE_CASES = {
     "tridiag_bm_exp": ({}, {}, True),
     "analytic": ({"ell_method": "analytic"}, {}, True),
@@ -180,9 +182,9 @@ PREDICATE_CASES = {
     "cv": ({"param": "cv"}, {}, False),
     "full": ({"q": "full"}, {}, False),
     "fbm": ({"kernel": "fbm", "q": "full"}, {}, False),
-    "float64": ({"dtype": torch.float64}, {}, False),
-    "y_requires_grad": ({}, {"y_grad": True}, False),
-    "x_requires_grad": ({}, {"x_grad": True}, False),
+    "float64": ({"dtype": torch.float64}, {}, True),
+    "y_requires_grad": ({}, {"y_grad": True}, True),
+    "x_requires_grad": ({}, {"x_grad": True}, True),
     "cpu": ({}, {"cpu": True}, False),
 }
 
@@ -190,10 +192,11 @@ PREDICATE_CASES = {
 @pytest.mark.parametrize("case", list(PREDICATE_CASES))
 def test_g1_dispatch_rule(case, monkeypatch):
     """``GPCVModel.elbo`` takes G1 for the tridiagonal family with the BM
-    kernel and the closed-form exp term, on float32 tensors on the card,
-    with no gradient wanted for the grid or the returns, and for nothing
-    else.  Evaluated without a card: the tensors count as the card's
-    unless the case is the CPU; on the CPU ``elbo`` launches nothing."""
+    kernel and the closed-form exp term on the card (``native.on_card``),
+    and for nothing else: nothing falls back to the plain path there, and
+    G1 refuses a gradient wanted for the grid or the returns.  Evaluated
+    without a card: the tensors count as the card's unless the case is
+    the CPU; on the CPU ``elbo`` launches nothing."""
     model_kw, data_kw, takes = PREDICATE_CASES[case]
     dtype = model_kw.pop("dtype", torch.float32)
     rng = np.random.default_rng(0)
@@ -208,5 +211,8 @@ def test_g1_dispatch_rule(case, monkeypatch):
         model.elbo(x, y)
         assert dict(native.launches) == before
     else:
-        monkeypatch.setattr(gpcv_elbo, "_on_card", lambda t: True)
+        monkeypatch.setattr(native, "on_card", lambda t: True)
     assert model._takes_g1(x, y) is takes
+    if data_kw.get("x_grad") or data_kw.get("y_grad"):
+        with pytest.raises(ValueError, match="no gradient"):
+            model.elbo(x, y)

@@ -13,7 +13,6 @@ from torch import nn
 from volt_tpu_torch import native
 from volt_tpu_torch.likelihoods import VolatilityGaussianLikelihood
 from volt_tpu_torch.models.multitask import MultitaskVariationalGP
-from volt_tpu_torch.ops import mt_gpcv_elbo
 from volt_tpu_torch.ops.chol import psd_safe_cholesky
 
 DT = 1.0 / 252
@@ -253,18 +252,21 @@ def test_g3_closed_form_where_the_float32_ladder_adds_jitter():
     assert abs(elbo32 - elbo64) > 1e-3 * abs(elbo64)
 
 
-# (what the model is, what the tensors are) -> whether elbo takes G3
+# (what the model is, what the tensors are) -> whether elbo takes G3: on
+# the card every call of the family goes to G3, whose wrapper raises on a
+# rank above 4, float64 and a batch (tests/test_torch_cuda.py) and on a
+# gradient wanted for the grid or the returns (here)
 PREDICATE_CASES = {
     "tridiag_exp": ({}, {}, True),
     "rank_4": ({"r": 4}, {}, True),
-    "rank_5": ({"r": 5}, {}, False),
+    "rank_5": ({"r": 5}, {}, True),
     "full": ({"q": "full"}, {}, False),
     "fbm_full": ({"q": "full", "kernel": "fbm"}, {}, False),
     "cv": ({}, {"param": "cv"}, False),
-    "float64": ({"dtype": torch.float64}, {}, False),
-    "y_requires_grad": ({}, {"y_grad": True}, False),
-    "x_requires_grad": ({}, {"x_grad": True}, False),
-    "batched": ({}, {"batched": True}, False),
+    "float64": ({"dtype": torch.float64}, {}, True),
+    "y_requires_grad": ({}, {"y_grad": True}, True),
+    "x_requires_grad": ({}, {"x_grad": True}, True),
+    "batched": ({}, {"batched": True}, True),
     "cpu": ({}, {"cpu": True}, False),
 }
 
@@ -272,11 +274,11 @@ PREDICATE_CASES = {
 @pytest.mark.parametrize("case", list(PREDICATE_CASES))
 def test_g3_dispatch_rule(case, monkeypatch):
     """``MultitaskVariationalGP.elbo`` takes G3 for the tridiagonal family
-    with the closed-form exp term, on unbatched float32 tensors on the
-    card, with a task factor of rank at most 4 and no gradient wanted for
-    the grid or the returns, and for nothing else.  Evaluated without a
-    card: the tensors count as the card's unless the case is the CPU; on
-    the CPU ``elbo`` launches nothing."""
+    with the closed-form exp term on the card (``native.on_card``), and
+    for nothing else: nothing falls back to the plain path there, and G3
+    refuses a gradient wanted for the grid or the returns.  Evaluated
+    without a card: the tensors count as the card's unless the case is
+    the CPU; on the CPU ``elbo`` launches nothing."""
     model_kw, data_kw, takes = PREDICATE_CASES[case]
     dtype = model_kw.pop("dtype", torch.float32)
     rng = np.random.default_rng(0)
@@ -294,5 +296,8 @@ def test_g3_dispatch_rule(case, monkeypatch):
         model.elbo(x, y, lik)
         assert dict(native.launches) == before
     else:
-        monkeypatch.setattr(mt_gpcv_elbo, "_on_card", lambda t: True)
+        monkeypatch.setattr(native, "on_card", lambda t: True)
     assert model._takes_g3(x, y, lik) is takes
+    if data_kw.get("x_grad") or data_kw.get("y_grad"):
+        with pytest.raises(ValueError, match="no gradient"):
+            model.elbo(x, y, lik)

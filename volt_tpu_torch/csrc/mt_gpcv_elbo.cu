@@ -677,12 +677,18 @@ long long workspace_len(int n, int t, int r) {
 
 }  // namespace
 
+// The float64 workspace's length in doubles: the wrapper allocates it, and
+// only this file knows its layout.
+extern "C" long long volt_mt_gpcv_workspace_len(int n, int t, int r) {
+  return workspace_len(n, t, r);
+}
+
 // x (n,); y, m (n, t); q_log_d (n,); q_e (n - 1,); root (t, t); c, v (t,);
 // f (t, r), 1 <= r <= 4; vol (1,).  Writes the ELBO (a scalar) and, when
 // g_m is not null, its gradients g_m (n, t), g_ld (n,), g_e (n - 1,),
 // g_root (t, t) (0 above the diagonal), g_c, g_v (t,), g_f (t, r), g_vol
 // (1,), through the float64 workspace ws of ws_len doubles, at least
-// n (4 + r) + t (4 + 3 r) + WS_SCALARS.
+// volt_mt_gpcv_workspace_len(n, t, r).
 extern "C" int volt_mt_gpcv_tridiag_elbo(
     const float* x, const float* y, const float* m, const float* q_log_d, const float* q_e,
     const float* root, const float* c, const float* f, const float* v, const float* vol,

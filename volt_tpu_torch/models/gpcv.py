@@ -35,6 +35,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from .. import native
 from ..convert import load_jax_params
 from ..gp.variational import (VariationalState, elbo_at_inducing,
                               exp_laplace_inv_hessian, laplace_initialize,
@@ -47,7 +48,7 @@ from ..ops.bidiag import (bidiag_chol_from_tridiag, bidiag_solve_lower,
                           tridiag_q_kl_bm_prior)
 from ..ops.brownian import bm_kl_against_prior
 from ..ops.chol import cholesky_solve, psd_safe_cholesky
-from ..ops.gpcv_elbo import g1_takes, tridiag_elbo
+from ..ops.gpcv_elbo import tridiag_elbo
 from ..ops.mvn import mvn_kl
 from ..ops.quadrature import DEFAULT_NUM_LOCS
 
@@ -201,23 +202,21 @@ class GPCVModel(nn.Module):
 
     def _takes_g1(self, train_x, y) -> bool:
         """Whether :meth:`elbo` runs kernel G1: the tridiagonal family, the
-        BM kernel and the closed-form exp term, on tensors that
-        :func:`~volt_tpu_torch.ops.gpcv_elbo.g1_takes`."""
+        BM kernel and the closed-form exp term, on the card
+        (:func:`~volt_tpu_torch.native.on_card`; G1's wrapper raises on
+        what it does not take)."""
         return (self.q == "tridiag" and isinstance(self.kernel, BMKernel)
                 and self.likelihood.param == "exp"
                 and self.ell_method in (None, "analytic")
-                and g1_takes(train_x, y, self.variational_mean,
-                             self.q_log_d, self.q_e, self.mean.constant,
-                             self.kernel.raw_vol))
+                and native.on_card(y))
 
     def elbo(self, train_x, y):
         """Per-asset ELBO at inducing == train == query points, ``(...)``;
         with the BM kernel both families' KLs are the prior's closed forms,
         with the FBM kernel the dense KL against its increment-domain
         factor.  The tridiagonal family's, with the BM kernel and the
-        closed-form exp term, is kernel G1 on float32 CUDA tensors (one
-        launch for the ELBO and its gradient) and the plain composition
-        elsewhere."""
+        closed-form exp term, is kernel G1 on the card (one launch for the
+        ELBO and its gradient) and the plain composition on the CPU."""
         n = y.shape[-1]
         m = self.variational_mean
         if self._takes_g1(train_x, y):

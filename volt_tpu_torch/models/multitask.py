@@ -23,6 +23,7 @@ import dataclasses
 import torch
 from torch import nn
 
+from .. import native
 from ..gp.kronecker import (kron_kl, kron_kl_bm_prior,
                             kron_kl_bm_prior_tridiag, kron_mvn_log_prob,
                             kron_mvn_log_prob_blockdiag_lowrank,
@@ -36,7 +37,8 @@ from ..ops.bidiag import (bidiag_chol_from_tridiag, bidiag_solve_lower,
 from ..ops.brownian import (future_grid_ok, min_kernel_eigenvalues,
                             min_kernel_project, nan_poison)
 from ..ops.chol import cholesky_solve, psd_safe_cholesky
-from ..ops.mt_gpcv_elbo import g3_takes, mt_tridiag_elbo
+from ..ops.mt_gpcv_elbo import mt_tridiag_elbo
+from ..ops.mt_vol_mll import mt_vol_mll
 from ..ops.mvn import sample_mvn
 from ..utils.profiling import annotate
 
@@ -136,9 +138,19 @@ class MultitaskBMGP(nn.Module):
     def mll_spectral(self, cache, n: int, t: int):
         """Exact multitask MLL / (N T) with no factor of the data kernel
         and, through ``B = F F^T + diag(v)``, no ``T x T`` factor of the
-        blocks (``kron_mvn_log_prob_blockdiag_lowrank``)."""
-        vol = self.data_kernel.vol()[..., 0]
+        blocks (``kron_mvn_log_prob_blockdiag_lowrank``).  Kernel G4 on the
+        card (one call for the MLL and its gradient, one LU and no wait for
+        the card; it raises on a batch, a task factor of rank above 4 and
+        float64), the plain composition on the CPU."""
+        vol = self.data_kernel.vol()
         factor, task_diag = self.task_kernel.factor_and_diag()
+        noise = self.likelihood.noise()
+        if native.on_card(cache["p_y"]):
+            with annotate("woodbury"):
+                return mt_vol_mll(cache["p_y"], cache["p_x"], cache["mu"],
+                                  cache["w"], cache["dx"], cache["x0"], vol,
+                                  factor, task_diag, noise)
+        vol = vol[..., 0]
         diag_b = torch.sum(factor * factor, dim=-1) + task_diag
         # U^T mean = (-0.5 vol^2 p_x) outer diag(B)
         r_tilde = cache["p_y"] + (0.5 * vol ** 2.0 * cache["p_x"])[
@@ -147,7 +159,7 @@ class MultitaskBMGP(nn.Module):
         c = vol * (cache["x0"] - cache["dx"])
         with annotate("woodbury"):
             lp = kron_mvn_log_prob_blockdiag_lowrank(
-                r_tilde, ld, c, factor, task_diag, self._noise(), cache["w"])
+                r_tilde, ld, c, factor, task_diag, noise[..., 0], cache["w"])
         return lp / (n * t)
 
     def posterior(self, train_x, train_y, test_x):
@@ -368,23 +380,19 @@ class MultitaskVariationalGP(nn.Module):
 
     def _takes_g3(self, x, y, likelihood) -> bool:
         """Whether :meth:`elbo` runs kernel G3: the tridiagonal family (so
-        the BM kernel) and the closed-form exp term, on tensors that
-        :func:`~volt_tpu_torch.ops.mt_gpcv_elbo.g3_takes`."""
+        the BM kernel) and the closed-form exp term, on the card
+        (:func:`~volt_tpu_torch.native.on_card`; G3's wrapper raises on what
+        it does not take)."""
         return (self.q == "tridiag"
                 and isinstance(likelihood, VolatilityGaussianLikelihood)
-                and likelihood.param == "exp"
-                and g3_takes(x, y, self.index_kernel.covar_factor,
-                             self.variational_mean, self.q_log_d, self.q_e,
-                             self.variational_task_covar_root,
-                             self.mean_constants, self.index_kernel.raw_var,
-                             self.data_kernel.raw_vol))
+                and likelihood.param == "exp" and native.on_card(y))
 
     def elbo(self, x, y, likelihood, num_locs: int = 75):
         """The ELBO at inducing == train: the mean expected log-likelihood
         of ``y (N, T)`` less ``KL / (N T)``.  The tridiagonal family's,
-        with the closed-form exp term, is kernel G3 on float32 CUDA
-        tensors (one call for the ELBO and its gradient, no wait for the
-        card) and the plain composition elsewhere."""
+        with the closed-form exp term, is kernel G3 on the card (one call
+        for the ELBO and its gradient, no wait for the card) and the plain
+        composition on the CPU."""
         if self._takes_g3(x, y, likelihood):
             with annotate("mt_elbo"):
                 factor, task_diag = self.index_kernel.factor_and_diag()

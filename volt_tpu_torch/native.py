@@ -15,6 +15,11 @@ the host's path of every kernel call, so it does little: each C entry is
 resolved once, the device is switched only when the tensors' device is not
 the current one, and the current stream is still read on every call (a
 CUDA graph captures on a stream of its own).
+
+:func:`on_card` is the port's one rule between a kernel and its plain
+version: a call whose tensors lie on the card goes to the kernel, whose
+wrapper raises on what the kernel does not take; a call on the CPU takes
+the plain version.  Nothing falls back to the plain version on the card.
 """
 
 from __future__ import annotations
@@ -30,13 +35,14 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["library", "launch", "launches", "check_tensors", "build_log"]
+__all__ = ["library", "launch", "launches", "check_tensors", "build_log",
+           "on_card", "size"]
 
 _HERE = Path(__file__).resolve().parent
 _CSRC = _HERE / "csrc"
 _BUILD = _HERE / "_build"
 _SOURCES = ("ewma_filter.cu", "kalman.cu", "volt_cov.cu", "gh_ell.cu",
-            "gpcv_elbo.cu", "mt_gpcv_elbo.cu")
+            "gpcv_elbo.cu", "mt_gpcv_elbo.cu", "mt_vol_mll.cu")
 _HEADERS = ("affine_scan.cuh",)
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -56,6 +62,16 @@ _SIGNATURES = {
     "volt_gh_ell_backward": (_P, _P, _P, _P, _P, _P, _I, _P),
     "volt_gpcv_tridiag_elbo": (_P, _I, *(_P,) * 13, _I, _I, _P),
     "volt_mt_gpcv_tridiag_elbo": (*(_P,) * 20, _L, _I, _I, _I, _P),
+    "volt_mt_vol_woodbury_blocks": (*(_P,) * 15, _L, _I, _I, _I, _P),
+    "volt_mt_vol_woodbury_mll": (*(_P,) * 12, _I, _P, _I, _I, *(_P,) * 7,
+                                 _L, _I, _I, _I, _P),
+}
+
+# C functions that launch nothing and return a size that only their source
+# knows (a workspace's length): argument types.
+_SIZES = {
+    "volt_mt_gpcv_workspace_len": (_I, _I, _I),
+    "volt_mt_vol_woodbury_workspace_len": (_I, _I, _I),
 }
 
 # What :func:`launch` passes as it is; everything else is a tensor.
@@ -110,7 +126,7 @@ def _run_all(cmds):
 def _entries() -> dict:
     """The C entry points of :func:`library`, by name."""
     lib = library()
-    return {name: getattr(lib, name) for name in _SIGNATURES}
+    return {name: getattr(lib, name) for name in (*_SIGNATURES, *_SIZES)}
 
 
 @functools.cache
@@ -135,9 +151,25 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+    for name, argtypes in _SIZES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_longlong
     lib.volt_cuda_error_string.argtypes = (ctypes.c_int,)
     lib.volt_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def on_card(t: torch.Tensor) -> bool:
+    """Whether a call on ``t`` goes to its kernel: ``t`` lies on the card.
+    The kernel's wrapper then launches it or raises; only a tensor on the
+    CPU takes the plain version."""
+    return t.is_cuda
+
+
+def size(symbol: str, *args: int) -> int:
+    """The size that the C function ``symbol`` computes from ``args``."""
+    return _entries()[symbol](*args)
 
 
 def check_tensors(name: str, *tensors):

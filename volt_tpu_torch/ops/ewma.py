@@ -107,7 +107,7 @@ def ewma(y, k: int):
     """Truncated EWMA filter, ``(..., T) -> (..., T + 1)``."""
     if k < 1:
         raise ValueError(f"ewma needs k >= 1, got {k}")
-    if y.is_cpu:
+    if not native.on_card(y):
         return _ewma_conv(y, k)
     t = y.shape[-1]
     flat = y.dim() == 2  # the main path's (B, T): no reshape either way

@@ -159,7 +159,7 @@ def gh_expected_log_prob(y, mean, var, num_locs: int = DEFAULT_NUM_LOCS):
     """GH expected log-likelihood; ``y``, ``mean`` and ``var`` broadcast
     together, and gradients reach all three."""
     y, mean, var = torch.broadcast_tensors(y, mean, var)
-    if y.is_cpu:
+    if not native.on_card(y):
         return _gh_ell_plain(y, mean, var, num_locs)
     ins = (y.contiguous(), mean.contiguous(), var.contiguous())
     if torch.is_grad_enabled() and any(t.requires_grad for t in ins):

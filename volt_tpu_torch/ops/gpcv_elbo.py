@@ -9,7 +9,8 @@ when a gradient is wanted, in the same pass its gradient with respect to
 the variational mean, ``q_log_d``, ``q_e``, the constant prior mean and
 the kernel's ``vol``; the autograd function's backward only scales those
 by the per-asset cotangent.  That plain composition is the CPU's path and
-the kernel's reference.
+the kernel's reference (``native.on_card``: on the card G1 runs or its
+wrapper raises).
 """
 
 from __future__ import annotations
@@ -18,20 +19,7 @@ import torch
 
 from .. import native
 
-__all__ = ["g1_takes", "tridiag_elbo", "tridiag_elbo_cuda"]
-
-
-def _on_card(t) -> bool:
-    return t.is_cuda
-
-
-def g1_takes(train_x, y, *params) -> bool:
-    """Whether G1 takes these tensors: every one float32 on the card, and
-    no gradient wanted for the grid ``train_x`` or the returns ``y`` (the
-    kernel gives none)."""
-    return (not (train_x.requires_grad or y.requires_grad)
-            and all(_on_card(t) and t.dtype is torch.float32
-                    for t in (train_x, y, *params)))
+__all__ = ["tridiag_elbo", "tridiag_elbo_cuda"]
 
 
 def tridiag_elbo_cuda(x, y, m, q_log_d, q_e, c, vol, grad: bool = False):
@@ -84,10 +72,16 @@ class _TridiagELBO(torch.autograd.Function):
 
 def tridiag_elbo(train_x, y, m, q_log_d, q_e, c, vol):
     """The per-asset ELBO ``(...)`` of ``GPCVModel.elbo`` (``q="tridiag"``,
-    BM, the closed-form exp term) by G1, for tensors that
-    :func:`g1_takes`: the batch shapes broadcast together, ``train_x`` is
-    ``(n,)`` or batched, and gradients reach ``m``, ``q_log_d``, ``q_e``,
-    the prior mean's constant ``c`` ``(..., 1)`` and ``vol`` ``(..., 1)``."""
+    BM, the closed-form exp term) by G1, for the card's tensors: the batch
+    shapes broadcast together, ``train_x`` is ``(n,)`` or batched, and
+    gradients reach ``m``, ``q_log_d``, ``q_e``, the prior mean's constant
+    ``c`` ``(..., 1)`` and ``vol`` ``(..., 1)``.  Raises on what G1 does
+    not take: a tensor not float32, and a gradient wanted for the grid or
+    the returns."""
+    if torch.is_grad_enabled() and (train_x.requires_grad
+                                    or y.requires_grad):
+        raise ValueError("gpcv_tridiag_elbo: G1 gives no gradient for the "
+                         "grid or the returns")
     batch = torch.broadcast_shapes(*(t.shape[:-1] for t in (
         train_x, y, m, q_log_d, q_e, c, vol)))
 

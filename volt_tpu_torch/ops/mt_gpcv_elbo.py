@@ -23,31 +23,11 @@ import torch
 
 from .. import native
 
-__all__ = ["G3_MAX_RANK", "g3_takes", "mt_tridiag_elbo",
-           "mt_tridiag_elbo_cuda"]
+__all__ = ["G3_MAX_RANK", "mt_tridiag_elbo", "mt_tridiag_elbo_cuda"]
 
 # The largest rank of the task factor that G3 takes (``RMAX`` in the
 # kernel's source).
 G3_MAX_RANK = 4
-# The kernel's float64 workspace: n (4 + r) + t (4 + 3 r) + _WS_SCALARS
-# (``WS_SCALARS`` in the kernel's source).
-_WS_SCALARS = 64
-
-
-def _on_card(t) -> bool:
-    return t.is_cuda
-
-
-def g3_takes(train_x, y, factor, *params) -> bool:
-    """Whether G3 takes these tensors: the grid ``(n,)`` and the returns
-    ``(n, T)`` with no batch, the task factor of rank at most
-    :data:`G3_MAX_RANK`, every tensor float32 on the card, and no gradient
-    wanted for the grid or the returns (the kernel gives none)."""
-    return (train_x.dim() == 1 and y.dim() == 2
-            and 1 <= factor.shape[-1] <= G3_MAX_RANK
-            and not (train_x.requires_grad or y.requires_grad)
-            and all(_on_card(t) and t.dtype is torch.float32
-                    for t in (train_x, y, factor, *params)))
 
 
 def mt_tridiag_elbo_cuda(x, y, m, q_log_d, q_e, root, c, factor, v, vol,
@@ -75,7 +55,7 @@ def mt_tridiag_elbo_cuda(x, y, m, q_log_d, q_e, root, c, factor, v, vol,
     out = y.new_empty(())
     grads = tuple(torch.empty_like(a) for a in ins[2:]) if grad \
         else (None,) * 8
-    ws = torch.empty(n * (4 + r) + t * (4 + 3 * r) + _WS_SCALARS,
+    ws = torch.empty(native.size("volt_mt_gpcv_workspace_len", n, t, r),
                      dtype=torch.float64, device=y.device)
     native.launch("volt_mt_gpcv_tridiag_elbo", *ins, out, *grads, ws,
                   ws.numel(), n, t, r, device=y.device)
@@ -102,12 +82,18 @@ class _MtTridiagELBO(torch.autograd.Function):
 
 def mt_tridiag_elbo(train_x, y, m, q_log_d, q_e, root, c, factor, v, vol):
     """The ELBO of ``MultitaskVariationalGP.elbo`` (``q="tridiag"``, the
-    closed-form exp term) by G3, for tensors that :func:`g3_takes`:
-    gradients reach ``m``, ``q_log_d``, ``q_e``, the task root ``root``,
-    the prior's constants ``c (T,)``, the task factor, its diagonal ``v``
-    and ``vol (1,)``."""
+    closed-form exp term) by G3, for the card's tensors: gradients reach
+    ``m``, ``q_log_d``, ``q_e``, the task root ``root``, the prior's
+    constants ``c (T,)``, the task factor, its diagonal ``v`` and ``vol
+    (1,)``.  Raises on what G3 does not take: a batch, a task factor of
+    rank above :data:`G3_MAX_RANK`, a tensor not float32, and a gradient
+    wanted for the grid or the returns."""
     ins = tuple(a.contiguous() for a in (train_x, y, m, q_log_d, q_e, root,
                                          c, factor, v, vol))
-    if torch.is_grad_enabled() and any(a.requires_grad for a in ins[2:]):
+    grad = torch.is_grad_enabled()
+    if grad and (train_x.requires_grad or y.requires_grad):
+        raise ValueError("mt_gpcv_tridiag_elbo: G3 gives no gradient for "
+                         "the grid or the returns")
+    if grad and any(a.requires_grad for a in ins[2:]):
         return _MtTridiagELBO.apply(*ins)
     return mt_tridiag_elbo_cuda(*ins)[0]

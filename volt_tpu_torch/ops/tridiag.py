@@ -223,7 +223,7 @@ def _kalman(v, sigma2, resid):
     delta_b = delta.expand(*batch, n)
     resid_b = resid.expand(*batch, n)
     s2_b = sigma2.expand(batch)
-    if resid.device.type == "cpu":
+    if not native.on_card(resid):
         return _kalman_plain(delta_b, s2_b, resid_b)
     outs = _KalmanS1.apply(delta_b.reshape(-1, n).contiguous(),
                            s2_b.reshape(-1).contiguous(),

@@ -59,7 +59,7 @@ def volt_covariance(x, vol):
     """``(..., N, N)`` Volt covariance on the uniform grid ``x`` ``(N,)``
     under the reference rule; ``vol`` is ``(N,)`` or ``(..., N)``."""
     integral = vol_integral(x, vol, "reference")
-    if integral.device.type == "cpu":
+    if not native.on_card(integral):
         return min_index_covariance(integral)
     n = integral.shape[-1]
     out = _VoltCovariance.apply(integral.reshape(-1, n).contiguous())
