@@ -1523,3 +1523,123 @@ def test_a_second_warm_multitask_tick_syncs_only_at_the_vol_stage_wait(cuda):
     assert found
     assert [f for f in found if "vol" in f[0]
             and "sync:stage_end" not in f[0]] == []
+
+
+def _fbm_tick_inputs(gen, b, n, h):
+    x = torch.arange(n, device="cuda") / 252.0
+    test_x = x[-1] + torch.arange(1, h + 1, device="cuda") / 252.0
+    ys = 10.0 * torch.exp(torch.cumsum(0.01 * torch.randn(
+        b, n + 2, device="cuda", generator=gen), dim=-1))
+    return x, test_x, ys
+
+
+def _fbm_config(steps, s=64):
+    from volt_tpu_torch.parallel import PipelineConfig
+    return PipelineConfig(kernel="fbm", gpcv_iters=steps, vol_iters=steps,
+                          data_iters=steps, k=20, nsample=s,
+                          output="quantiles")
+
+
+def test_small_fbm_warm_tick_card_matches_cpu(cuda):
+    """One warm FBM tick at shift 1 (B=2, n=48, 10 steps a stage) from the
+    CPU's cold fit, on the card and on the CPU, on the same normals, at
+    rtol 1e-2: as in the cold fit's test, the dense family's Adam turns
+    rounding into lr-sized moves."""
+    from volt_tpu_torch.parallel import fit_forecast_batch, warm_start
+
+    b, n, h, s = 2, 48, 8, 32
+    x, f = _sabr(b, n + 1, 9)
+    x = x[:n]
+    test_x = x[-1] + torch.arange(1, h + 1) / 252.0
+    g = torch.Generator().manual_seed(10)
+    noise = {"vol_z": torch.randn(b, s, h, generator=g),
+             "zs": torch.randn(b, s, h, generator=g)}
+    _, aux = fit_forecast_batch(None, x, f[:, :-1], test_x,
+                                _fbm_config(20, s), noise=noise)
+    init = warm_start(aux, shift=1, n=n)
+
+    def to(tree, dev):
+        if isinstance(tree, dict):
+            return {k: to(v, dev) for k, v in tree.items()}
+        return tree.to(dev)
+
+    out = {dev: fit_forecast_batch(
+        None, x.to(dev), f[:, 1:].to(dev), test_x.to(dev),
+        _fbm_config(10, s), init_params=to(init, dev),
+        noise=to(noise, dev)) for dev in ("cpu", "cuda")}
+    (fan_c, aux_c), (fan_g, aux_g) = out["cpu"], out["cuda"]
+    assert bool(aux_g["ok"].all())
+    for key in ("gpcv_loss", "vol_loss", "data_loss", "vol"):
+        torch.testing.assert_close(aux_g[key].cpu(), aux_c[key], rtol=1e-2,
+                                   atol=0.0)
+    torch.testing.assert_close(fan_g.cpu(), fan_c, rtol=1e-2, atol=0.0)
+
+
+def test_every_sync_of_an_fbm_tick_is_in_a_sync_span(cuda):
+    """Over one warm tick of the FBM pipeline every sync that PyTorch
+    reports falls inside a ``sync:`` span (the per-lane ladders'
+    ``sync:jitter`` and the stage waits), and the dense spans hold
+    ``fbm_factor`` in each GPCV forward, in each ``dense_mll`` and in
+    ``dense_sample``."""
+    from volt_tpu_torch.parallel import fit_forecast_batch, warm_start
+    from volt_tpu_torch.utils import profiling
+
+    x, test_x, ys = _fbm_tick_inputs(cuda, 4, 200, 20)
+    _, aux = fit_forecast_batch(cuda, x, ys[:, :-1], test_x, _fbm_config(3))
+
+    def tick():
+        init = warm_start(aux, shift=1, n=200)
+        fit_forecast_batch(cuda, x, ys[:, 1:], test_x, _fbm_config(3), init)
+
+    found = sync_warnings(tick)
+    print("syncs of an FBM tick:", found)
+    assert found
+    assert [f for f in found if not any(
+        s.startswith("sync:") for s in f[0])] == []
+    with profiling.recording():
+        tick()
+    rows = profiling.spans()
+    parents = [rows[s.parent].name for s in rows if s.name == "fbm_factor"]
+    print("fbm_factor parents:", parents)
+    assert parents.count("forward") == 3  # the GPCV steps' prior factors
+    assert parents.count("dense_mll") == 3
+    assert parents.count("dense_sample") == 1
+    assert len(parents) == 7
+
+
+def _bench_names(metric, name):
+    """A constant of a benchmark reader, read from its file."""
+    import importlib.util
+    import pathlib
+
+    path = (pathlib.Path(__file__).resolve().parent.parent / "benchmark"
+            / "metrics" / f"{metric}.py")
+    spec = importlib.util.spec_from_file_location(f"_{metric}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return getattr(mod, name)
+
+
+def test_dense_kernel_names_in_a_profiled_fbm_tick(cuda):
+    """The names that the benchmark's ``dense_la_s`` and ``chol_launches``
+    readers look for are in a profiled warm FBM tick at the cell's n=999
+    (B=4, 2 steps a stage): cuSOLVER's batched Cholesky and cuBLAS's
+    batched triangular solves."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from volt_tpu_torch.parallel import fit_forecast_batch, warm_start
+
+    n = 999
+    x, test_x, ys = _fbm_tick_inputs(cuda, 4, n, 100)
+    _, aux = fit_forecast_batch(cuda, x, ys[:, :-1], test_x, _fbm_config(2))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fit_forecast_batch(cuda, x, ys[:, 1:], test_x, _fbm_config(2),
+                           warm_start(aux, shift=1, n=n))
+        torch.cuda.synchronize()
+    names = {e.name() for e in prof.profiler.kineto_results.events()
+             if e.device_type() == torch.autograd.DeviceType.CUDA}
+    print(sorted(k[:60] for k in names if "potrf" in k or "trsm" in k))
+    for part in _bench_names("dense_la_s", "KERNELS"):
+        assert [k for k in names if part in k], part
+    assert [k for k in names if _bench_names("chol_launches", "KERNEL") in k]

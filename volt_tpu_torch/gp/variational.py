@@ -23,6 +23,7 @@ import torch
 from ..ops.chol import (add_jitter, cholesky_solve, psd_safe_cholesky,
                         solve_lower_triangular)
 from ..ops.mvn import mvn_kl
+from ..utils.profiling import annotate
 
 __all__ = [
     "VariationalState",
@@ -51,7 +52,8 @@ def elbo_at_inducing(state: VariationalState, prior_mean, kuu, y,
     """``mean_i E_q[log p(y_i | f_i)] - beta KL(q || p) / num_data`` with
     inducing == train == query points.  ``expected_log_prob_fn(y, mean,
     var)`` is per datum; ``chol_p`` optionally gives the factor of
-    ``kuu``, otherwise the jitter ladder makes it."""
+    ``kuu``, otherwise the jitter ladder makes it.  The dense KL is a
+    ``dense_kl`` span."""
     if num_data is None:
         num_data = y.shape[-1]
     chol_q = torch.tril(state.chol_variational_covar)
@@ -60,7 +62,8 @@ def elbo_at_inducing(state: VariationalState, prior_mean, kuu, y,
     if chol_p is None:
         chol_p = psd_safe_cholesky(kuu, jitter=chol_jitter,
                                    max_tries=chol_max_tries)
-    kl = mvn_kl(state.variational_mean, chol_q, prior_mean, chol_p)
+    with annotate("dense_kl"):
+        kl = mvn_kl(state.variational_mean, chol_q, prior_mean, chol_p)
     return torch.mean(ell, dim=-1) - kl * beta / num_data
 
 

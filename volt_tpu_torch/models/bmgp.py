@@ -28,6 +28,7 @@ from ..ops.brownian import (future_grid_ok, min_kernel_eigenvalues,
                             min_kernel_project, nan_poison)
 from ..ops.mvn import mvn_log_prob_chol, sample_mvn
 from ..ops.tridiag import brownian_noise_filter, brownian_noise_mll_kalman
+from ..utils.profiling import annotate
 
 __all__ = ["BMGP", "BMGPState"]
 
@@ -99,10 +100,11 @@ class BMGP(nn.Module):
     def mll(self, x, y):
         """Dense exact MLL / n: a Cholesky of ``vol min(x) + noise I``, or
         for the FBM kernel the increment-domain factor of ``K + noise
-        I``."""
+        I`` (a ``dense_mll`` span)."""
         if isinstance(self.kernel, FBMKernel):
-            chol = self._fbm_noise_chol(x)
-            return mvn_log_prob_chol(y, self.mean(x), chol) / y.shape[-1]
+            with annotate("dense_mll"):
+                chol = self._fbm_noise_chol(x)
+                return mvn_log_prob_chol(y, self.mean(x), chol) / y.shape[-1]
         return exact_mll(y, self.mean(x), self.kernel(x),
                          self.likelihood.noise())
 
@@ -129,13 +131,16 @@ class BMGP(nn.Module):
     def sample(self, train_x, train_y, test_x, sample_shape=(),
                generator=None, noise=None):
         """Joint posterior samples ``(*sample_shape, ..., H)`` of the latent
-        log vol (``noise``: the standard normals of that shape)."""
-        mean, cov = self.posterior(train_x, train_y, test_x)
-        # the FBM kernel samples here in the batched pipeline, one asset a
-        # lane, so its posterior factors climb their jitter ladders apart
-        return sample_mvn(mean, cov, sample_shape, generator=generator,
-                          noise=noise,
-                          per_lane=isinstance(self.kernel, FBMKernel))
+        log vol (``noise``: the standard normals of that shape); a
+        ``dense_sample`` span."""
+        with annotate("dense_sample"):
+            mean, cov = self.posterior(train_x, train_y, test_x)
+            # the FBM kernel samples here in the batched pipeline, one
+            # asset a lane, so its posterior factors climb their jitter
+            # ladders apart
+            return sample_mvn(mean, cov, sample_shape, generator=generator,
+                              noise=noise,
+                              per_lane=isinstance(self.kernel, FBMKernel))
 
     def spectral_cache(self, x, y):
         """Closed-form eigensystem of ``min(x)`` on an equispaced grid

@@ -21,13 +21,15 @@ Each factor takes ``per_lane`` for :func:`.chol.psd_safe_cholesky`: the
 batched pipeline climbs the jitter ladder per asset, as ``jax.vmap`` of
 the JAX function does.  Torch's ``pow`` gives ``0`` for the exponent's
 gradient where the base is 0 (the diagonal of the last term, the first
-row and column of the others), as JAX's does.
+row and column of the others), as JAX's does.  Each factor (the Gram, its
+ladder and the cumulative sum) is an ``fbm_factor`` span.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import annotate
 from .chol import psd_safe_cholesky
 
 __all__ = ["fbm_increment_cov", "fbm_cholesky", "fbm_noise_cholesky"]
@@ -58,9 +60,10 @@ def fbm_cholesky(x, two_h, jitter: float | None = None, max_tries: int = 3,
     """Lower Cholesky factor of the FBM Gram, ``cumsum(chol(G))``.  The
     jitter ladder runs on ``G``, so jitter perturbs ``K`` by ``eps A A^T``
     (a BM ridge), not ``eps I``; the factor is exact for that matrix."""
-    lg = psd_safe_cholesky(fbm_increment_cov(x, two_h), jitter=jitter,
-                           max_tries=max_tries, per_lane=per_lane)
-    return torch.cumsum(lg, dim=-2)
+    with annotate("fbm_factor"):
+        lg = psd_safe_cholesky(fbm_increment_cov(x, two_h), jitter=jitter,
+                               max_tries=max_tries, per_lane=per_lane)
+        return torch.cumsum(lg, dim=-2)
 
 
 def fbm_noise_cholesky(x, two_h, noise, jitter: float | None = None,
@@ -68,11 +71,13 @@ def fbm_noise_cholesky(x, two_h, noise, jitter: float | None = None,
     """Lower Cholesky factor of ``K + noise I`` through ``G + noise D D^T``;
     ``noise`` is ``(..., 1)`` or broadcastable against ``(..., 1, 1)``."""
     n = x.shape[-1]
-    diag = torch.full((n,), 2.0, dtype=x.dtype, device=x.device)
-    diag[0] = 1.0
-    off = torch.ones(n - 1, dtype=x.dtype, device=x.device)
-    ddt = torch.diag(diag) - torch.diag(off, 1) - torch.diag(off, -1)
-    g = fbm_increment_cov(x, two_h) + _trailing_matrix(noise) * ddt
-    lg = psd_safe_cholesky(g, jitter=jitter, max_tries=max_tries,
-                           per_lane=per_lane)
-    return torch.cumsum(lg, dim=-2)
+    with annotate("fbm_factor"):
+        # D D^T made on the device: writing a host scalar into a card
+        # tensor would wait for the card at every factor
+        ones = torch.ones(n, dtype=x.dtype, device=x.device)
+        diag, off = torch.cat([ones[:1], 2.0 * ones[1:]]), ones[1:]
+        ddt = torch.diag(diag) - torch.diag(off, 1) - torch.diag(off, -1)
+        g = fbm_increment_cov(x, two_h) + _trailing_matrix(noise) * ddt
+        lg = psd_safe_cholesky(g, jitter=jitter, max_tries=max_tries,
+                               per_lane=per_lane)
+        return torch.cumsum(lg, dim=-2)
