@@ -51,7 +51,11 @@ Phases, each printed with its time; any failure exits non-zero:
    float32 values at (64, 999), (505, 999) and (3, 37), each within 1e-5
    of its largest value; timed at (64, 999) and (505, 999), with and
    without the gradient, the plain composition's forward and backward
-   beside); G3 (the multitask model's joint tridiagonal GPCV ELBO and its
+   beside); G2 (the BM vol GP's spectral MLL and its gradient in one
+   launch, float64 inside: against the plain composition in float64 on
+   the same float32 values at (505, 999), (64, 999) and (3, 37), each
+   within 1e-5 of its largest value; timed at (505, 999) and (64, 999) as
+   G1); G3 (the multitask model's joint tridiagonal GPCV ELBO and its
    gradient in one call, float64 inside: against the plain composition in
    float64 on the same float32 values at (n, T, r) = (999, 505, 1),
    (64, 8, 2) and (3, 2, 1), each within 1e-5 of its largest value; timed
@@ -249,7 +253,8 @@ runs the named phases (``PHASES``: ``kernel_times``, ``kalman_times``,
 process has not), ``gpcv_full``, ``gpcv_cv``, ``gpcv_sparse``,
 ``option_pricing``, ``fbm_path``, ``multitask``, ``long_main_path``,
 ``baselines``, ``mesh``, ``evaluation``, ``timing``,
-``gpcv_elbo_times`` (G1, in a tree that has it), ``mt_gpcv_elbo_times``
+``gpcv_elbo_times`` (G1, in a tree that has it), ``bm_vol_mll_times``
+(G2, likewise), ``mt_gpcv_elbo_times``
 (G3, likewise), ``mt_vol_mll_times`` (G4, likewise); a phase named twice
 runs twice, the first cold) in
 four fresh processes, in the trees parent, this one, this one, parent,
@@ -995,6 +1000,122 @@ def time_gpcv_elbo(torch, shapes=G1_SHAPES[:2]):
         print(f"   G1 ({b}, {n}): " + "; ".join(
             f"{way} {r['ms']:.4f} ms a call, {r['device_ms']:.4f} ms on the "
             f"device (bound {r['bound_ms']:.4f} ms)"
+            for way, r in rec.items() if way != "plain_ms")
+            + f"; plain forward and backward {rec['plain_ms']:.4f} ms a call")
+    return times
+
+
+G2_SHAPES = ((505, 999), (64, 999), (3, 37))
+
+
+def g2_args(torch, g, b, n):
+    """G2's tensors as the vol stage gives them: the spectral cache of log
+    vols on a random walk over the grid from 0 (a = vol (x0 - dx) < 0, as
+    the live cell's) and a vol GP's parameters moved off its init at
+    random."""
+    from volt_tpu_torch.models import BMGP
+
+    model = BMGP().init((b,), torch.float32, "cuda")
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(0.3 * torch.randn(p.shape, device="cuda", generator=g))
+    x = torch.arange(n, device="cuda", dtype=torch.float32) / 252.0
+    y = math.log(0.2) + torch.cumsum(
+        0.05 * torch.randn(b, n, device="cuda", generator=g), dim=-1)
+    cache = model.spectral_cache(x, y)
+    return tuple(a.detach().contiguous() for a in (
+        *(cache[k] for k in ("p_y", "p_t", "mu", "w", "dx", "x0")),
+        model.kernel.vol(),
+        model.likelihood.noise()))
+
+
+def bm_vol_mll_plain(torch, p_y, p_t, mu, w, dx, x0, vol, noise):
+    """The plain composition that ``BMGP.mll_spectral`` runs on the CPU, on
+    G2's arguments: the per-asset MLL."""
+    n = mu.shape[-1]
+    v, s = vol[..., 0], noise[..., 0]
+    d = v[..., None] * dx[..., None] * mu + s[..., None]
+    p_r = p_y + 0.5 * (v ** 2.0)[..., None] * p_t
+    a = v * (x0 - dx)
+    wd = w / d
+    big_s = 1.0 + a * torch.sum(w * wd, dim=-1)
+    quad = (torch.sum(p_r * p_r / d, dim=-1)
+            - a * torch.sum(wd * p_r, dim=-1) ** 2 / big_s)
+    logdet = torch.sum(torch.log(d), dim=-1) + torch.log(big_s)
+    return -0.5 * (quad + logdet + n * math.log(2.0 * math.pi)) / n
+
+
+def check_bm_vol_mll(torch):
+    """G2 against the plain composition in float64 on the same float32
+    values: the MLL and its gradients with respect to vol and the noise,
+    for a random cotangent, each within 1e-5 of its largest float64 value
+    (the card tests' limit), at the shapes of ``G2_SHAPES``."""
+    from volt_tpu_torch.ops import bm_vol_mll as tbv
+
+    g = torch.Generator(device="cuda").manual_seed(17)
+    worst = 0.0
+    for b, n in G2_SHAPES:
+        args = g2_args(torch, g, b, n)
+        cot = torch.randn(b, device="cuda", generator=g)
+        out, grads = tbv.bm_vol_mll_cuda(*args, grad=True)
+        ins = [a.double().requires_grad_() for a in args[6:]]
+        want = bm_vol_mll_plain(torch, *(a.double() for a in args[:6]),
+                                *ins)
+        wgrads = torch.autograd.grad((want * cot.double()).sum(), ins)
+        errs = {"mll": (out.double() - want).abs().max().item()
+                / want.abs().max().item()}
+        for name, a, w in zip(("vol", "noise"), grads, wgrads):
+            errs[name] = ((cot[:, None] * a).double() - w).abs().max().item() \
+                / w.abs().max().item()
+        print(f"   G2 ({b}, {n}): worst error over the largest float64 "
+              f"value: " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+        if not max(errs.values()) <= 1e-5:
+            fail(f"G2 disagrees with the float64 composition at ({b}, {n})")
+        worst = max(worst, *errs.values())
+    times = time_bm_vol_mll(torch)
+    main = times[str(G2_SHAPES[0])]
+    return {"name": "bm_vol_spectral_mll", "route": "cuda",
+            "source": "volt_tpu_torch/csrc/bm_vol_mll.cu",
+            "replaces": "none: the composition in BMGP.mll_spectral",
+            "symbol": "volt_bm_vol_spectral_mll", "max_rel_err": worst,
+            **main["grad"], "plain_ms": main["plain_ms"],
+            "library_ms": None, "library_device_ms": None,
+            "by_shape": times}
+
+
+def time_bm_vol_mll(torch, shapes=G2_SHAPES[:2]):
+    """G2 per call and on the device alone, with the gradient (a vol Adam
+    step's launch) and without; the plain composition's forward and
+    backward per call beside.  Its bound: p_y read once, the shared grid's
+    p_t, mu, w, dx and x0 once, vol and the noise once, the MLL and the two
+    gradients written once; or its float64 operations, 34 an entry with
+    the gradient and 15 without, the larger."""
+    from volt_tpu_torch.ops import bm_vol_mll as tbv
+
+    g = torch.Generator(device="cuda").manual_seed(18)
+    times = {}
+    for b, n in shapes:
+        args = g2_args(torch, g, b, n)
+        ways = {"grad": lambda *a: tbv.bm_vol_mll_cuda(*a, grad=True),
+                "no_grad": tbv.bm_vol_mll_cuda}
+        rec = {way: {"ms": cuda_ms(torch, lambda: fn(*args)),
+                     "device_ms": device_ms(torch, fn, *args)}
+               for way, fn in ways.items()}
+        reads = b * n + 3 * n + 2 + 2 * b
+        rec["grad"].update(bound_ms(4 * (reads + 3 * b), 34 * b * n,
+                                    FP64_OPS_PER_S))
+        rec["no_grad"].update(bound_ms(4 * (reads + b), 15 * b * n,
+                                       FP64_OPS_PER_S))
+        for r in rec.values():
+            r["share"] = r["bound_ms"] / r["device_ms"]
+        ins = [a.clone().requires_grad_() for a in args[6:]]
+        rec["plain_ms"] = cuda_ms(torch, lambda: torch.autograd.grad(
+            bm_vol_mll_plain(torch, *args[:6], *ins).sum(), ins))
+        times[str((b, n))] = rec
+        print(f"   G2 ({b}, {n}): " + "; ".join(
+            f"{way} {r['ms']:.4f} ms a call, {r['device_ms']:.4f} ms on the "
+            f"device (bound {r['bound_ms']:.4f} ms by {r['bound_by']}, "
+            f"{100 * r['share']:.2f}%)"
             for way, r in rec.items() if way != "plain_ms")
             + f"; plain forward and backward {rec['plain_ms']:.4f} ms a call")
     return times
@@ -3235,7 +3356,8 @@ def smoke():
     s1 = time_kalman(torch, vt)
     s1[0]["max_abs_err"], s1[1]["max_abs_err"] = fwd_err, bwd_err
     kernels = [k1, *s1, check_volt_cov(torch), *check_gh_ell(torch),
-               check_gpcv_elbo(torch), check_mt_gpcv_elbo(torch),
+               check_gpcv_elbo(torch), check_bm_vol_mll(torch),
+               check_mt_gpcv_elbo(torch),
                check_mt_vol_mll(torch)]
     done(t0)
 
@@ -3244,7 +3366,8 @@ def smoke():
     paths = {"ewma_filter": ("fit_forecast_batch", launches),
              "kalman_forward": ("fit_forecast_batch", launches),
              "kalman_backward": ("fit_forecast_batch", launches),
-             "gpcv_tridiag_elbo": ("fit_forecast_batch", launches)}
+             "gpcv_tridiag_elbo": ("fit_forecast_batch", launches),
+             "bm_vol_spectral_mll": ("fit_forecast_batch", launches)}
     done(t0)
 
     t0 = phase("reference API: Volt.Train / Forecast, dense MLL and rollout")
@@ -3369,6 +3492,7 @@ PHASES = {
     "kernel_times": lambda torch, vt, native: {"ewma": time_ewma(torch),
                                                "gh_ell": time_gh_ell(torch)},
     "gpcv_elbo_times": lambda torch, vt, native: time_gpcv_elbo(torch),
+    "bm_vol_mll_times": lambda torch, vt, native: time_bm_vol_mll(torch),
     "mt_gpcv_elbo_times": lambda torch, vt, native: time_mt_gpcv_elbo(torch),
     "mt_vol_mll_times": lambda torch, vt, native: time_mt_vol_mll(torch),
     "main_path": lambda torch, vt, native: run_main_path(torch, vt,

@@ -25,6 +25,7 @@ tvi = importlib.import_module("volt_tpu_torch.ops.volint")
 tge = importlib.import_module("volt_tpu_torch.ops.gpcv_elbo")
 tmg = importlib.import_module("volt_tpu_torch.ops.mt_gpcv_elbo")
 tmv = importlib.import_module("volt_tpu_torch.ops.mt_vol_mll")
+tbv = importlib.import_module("volt_tpu_torch.ops.bm_vol_mll")
 
 pytestmark = pytest.mark.cuda
 
@@ -378,10 +379,11 @@ def test_gpcv_elbo_kernel_bypassed(cuda, kw):
 
 def test_small_pipeline_with_g1_card_matches_cpu(cuda):
     """``fit_forecast_batch`` at B=2, n=72 from x = 0 (the small input that
-    ``chip_smoke.py`` compares), G1 on the card and the plain path on the
-    CPU, on the same normals: losses and vols rtol 1e-3, the fan rtol 2e-3
-    / atol 1e-3 (the small-pipeline tests' tolerances).  G1 runs once a
-    GPCV step on the card and never on the CPU."""
+    ``chip_smoke.py`` compares), G1 and G2 on the card and the plain path
+    on the CPU, on the same normals: losses and vols rtol 1e-3, the fan
+    rtol 2e-3 / atol 1e-3 (the small-pipeline tests' tolerances).  G1 runs
+    once a GPCV step and G2 once a vol step on the card, neither on the
+    CPU."""
     from volt_tpu_torch.data import sabr_paths
     from volt_tpu_torch.parallel import PipelineConfig, fit_forecast_batch
 
@@ -397,12 +399,14 @@ def test_small_pipeline_with_g1_card_matches_cpu(cuda):
              "zs": torch.randn(b, s, h, generator=g)}
     out, launched = {}, {}
     for dev in ("cpu", "cuda"):
-        before = native.launches[G1]
+        before = {s: native.launches[s] for s in (G1, G2)}
         out[dev] = fit_forecast_batch(
             None, x.to(dev), torch.tensor(f, device=dev), test_x.to(dev),
             cfg, noise={k: v.to(dev) for k, v in noise.items()})
-        launched[dev] = native.launches[G1] - before
-    assert launched == {"cpu": 0, "cuda": cfg.gpcv_iters}
+        launched[dev] = {s: native.launches[s] - n for s, n in
+                         before.items()}
+    assert launched == {"cpu": {G1: 0, G2: 0},
+                        "cuda": {G1: cfg.gpcv_iters, G2: cfg.vol_iters}}
     (fan_c, aux_c), (fan_g, aux_g) = out["cpu"], out["cuda"]
     assert bool(aux_g["ok"].all())
     for key in ("gpcv_loss", "vol_loss", "data_loss", "vol"):
@@ -423,6 +427,159 @@ def test_gpcv_elbo_wrapper_refuses_what_g1_does_not_take(cuda):
     model, x, y = _g1_model(cuda, (2,), 9, "dt")
     with pytest.raises(TypeError):
         model.double().elbo(x.double(), y.double())
+
+
+# --- G2: the spectral vol MLL of the BM vol GP and its gradient -------------
+
+G2 = "volt_bm_vol_spectral_mll"
+
+
+def _g2_inputs(gen, batch, n, grid, dtype=torch.float32):
+    """A BM vol GP on the card with random parameters near a fit's, its grid
+    and log vols on a random walk over it.  The grid: ``"zero"`` (shared,
+    from 0: a = vol (x0 - dx) < 0, as the live cell's), ``"dt"`` (shared,
+    from one step: a = 0) or ``"per_asset"`` (a step of its own per asset,
+    from 0, 1 or 2 steps by turns: every sign of a)."""
+    from volt_tpu_torch.models import BMGP
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+
+    model = BMGP().init(batch, dtype, "cuda")
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(0.3 * randn(*p.shape).to(dtype))
+    steps = torch.arange(n, device="cuda", dtype=torch.float32)
+    if grid == "per_asset":
+        dts = (1.0 + 0.2 * torch.rand(*batch, 1, device="cuda",
+                                      generator=gen)) / 252.0
+        start = (torch.arange(dts.numel(), device="cuda") % 3).reshape(
+            dts.shape)
+        x = (steps + start) * dts
+    else:
+        x = (steps + (1.0 if grid == "dt" else 0.0)) / 252.0
+    y = math.log(0.2) + torch.cumsum(0.05 * randn(*batch, n), dim=-1)
+    return model, x.to(dtype), y.to(dtype)
+
+
+def _g2_mll_and_grads(model, cache, cot):
+    model.zero_grad(set_to_none=True)
+    out = model.mll_spectral(cache)
+    (out * cot).sum().backward()
+    return {"mll": out.detach(), **{name: p.grad for name, p in
+                                    model.named_parameters()}}
+
+
+@pytest.mark.parametrize("grid", ["zero", "dt", "per_asset"])
+@pytest.mark.parametrize("shape", [(505, 999), (64, 999), (999,), (3, 2),
+                                   (2, 3, 37)])
+def test_bm_vol_mll_kernel_matches_float64(cuda, shape, grid):
+    """G2's MLL and its gradients with respect to ``raw_vol`` and
+    ``raw_noise`` (the sigmoid and softplus in autograd), for a random
+    cotangent, in one launch, against the plain composition in float64 on
+    the CPU on the same float32 values: each within 1e-5 of its largest
+    float64 value.  G2 sums in float64 from float32 inputs; what remains
+    is the float32 rounding of its outputs and of the constraints, which
+    the card computes in float32 and the reference in float64 (measured
+    on an H100 80GB HBM3: at most 3.5e-7 over these cases)."""
+    model, x, y = _g2_inputs(cuda, shape[:-1], shape[-1], grid)
+    cache = model.spectral_cache(x, y)
+    ref = copy.deepcopy(model).cpu().double()
+    cot = torch.randn(shape[:-1], device="cuda", generator=cuda)
+    before = native.launches[G2]
+    got = _g2_mll_and_grads(model, cache, cot)
+    assert native.launches[G2] == before + 1
+    want = _g2_mll_and_grads(ref, {k: v.cpu().double() for k, v in
+                                   cache.items()}, cot.cpu().double())
+    assert native.launches[G2] == before + 1
+    for k, v in got.items():
+        assert bool(torch.isfinite(v).all()), k
+    errs = {k: ((got[k].double().cpu() - want[k]).abs().max()
+                / want[k].abs().max()).item() for k in want}
+    print(f"G2 {shape} {grid}: worst error over the largest value "
+          + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+    assert max(errs.values()) <= 1e-5, errs
+
+
+def test_bm_vol_mll_kernel_nan_stays_in_its_row(cuda):
+    """A NaN in one asset's log vols leaves every other asset's MLL and
+    gradients bitwise as they are without it."""
+    model, x, y = _g2_inputs(cuda, (64,), 999, "zero")
+    runs = []
+    for bad in (False, True):
+        yy = y.clone()
+        if bad:
+            yy[5, 100] = float("nan")
+        runs.append(list(_g2_mll_and_grads(
+            model, model.spectral_cache(x, yy), 1.0).values()))
+    others = torch.arange(64, device="cuda") != 5
+    for a, b in zip(*runs):
+        assert torch.equal(a[others], b[others])
+    assert bool(torch.isnan(runs[1][0][5]))
+
+
+def test_bm_vol_mll_kernel_one_launch_an_adam_step(cuda):
+    """A 30-step warm vol fit at the live cell's shape (the tick's vol
+    stage, ``train._fit_bmgp`` with the spectral MLL) launches G2 30 times,
+    once a step, and once more for an MLL with no gradient."""
+    from volt_tpu_torch.train import _fit_bmgp
+
+    model, x, y = _g2_inputs(cuda, (505,), 999, "zero")
+    before = native.launches[G2]
+    losses = _fit_bmgp(model, x, y, 30, 0.01, spectral=True)
+    assert native.launches[G2] == before + 30
+    assert bool(torch.isfinite(losses).all())
+    with torch.no_grad():
+        again = model.mll_spectral(model.spectral_cache(x, y))
+    assert native.launches[G2] == before + 31
+    assert not again.requires_grad
+
+
+def test_bm_vol_mll_adam_step_makes_no_sync(cuda):
+    """A vol Adam step through G2 (forward, backward and the update) makes
+    no host-device sync that PyTorch reports, once a first step has put
+    Adam's constants on the card."""
+    from volt_tpu_torch.train import adam_loop
+
+    model, x, y = _g2_inputs(cuda, (64,), 999, "zero")
+    cache = model.spectral_cache(x, y)
+
+    def step():
+        adam_loop(model, lambda: -model.mll_spectral(cache), 1, 0.01)
+
+    step()
+    before = native.launches[G2]
+    found = sync_warnings(step)
+    assert native.launches[G2] == before + 1
+    assert found == []
+
+
+def test_bm_vol_mll_wrapper_refuses_what_g2_does_not_take(cuda):
+    model, x, y = _g2_inputs(cuda, (2,), 9, "dt")
+    cache = model.spectral_cache(x, y)
+    args = [cache[k] for k in ("p_y", "p_t", "mu", "w", "dx", "x0")] + [
+        model.kernel.vol().detach(), model.likelihood.noise().detach()]
+    out, grads = tbv.bm_vol_mll_cuda(*args, grad=True)
+    assert out.shape == (2,) and [g.shape for g in grads] == [(2, 1)] * 2
+    z = torch.zeros
+    for i, bad in ((1, z(2, 9, device="cuda")), (2, z(8, device="cuda")),
+                   (4, z(2, device="cuda")), (6, z(2, device="cuda")),
+                   (7, z(1, 1, device="cuda"))):
+        with pytest.raises(ValueError):
+            tbv.bm_vol_mll_cuda(*args[:i], bad, *args[i + 1:])
+    with pytest.raises(TypeError):
+        tbv.bm_vol_mll_cuda(args[0].double(), *args[1:])
+    # float64 on the card is refused through the model too, not sent to the
+    # plain path; so is a gradient wanted for the cache
+    before = native.launches[G2]
+    with pytest.raises(TypeError):
+        model.double().mll_spectral({k: v.double() for k, v in
+                                     cache.items()})
+    model.float()
+    cache["p_y"] = cache["p_y"].clone().requires_grad_()
+    with pytest.raises(ValueError, match="no gradient"):
+        model.mll_spectral(cache)
+    assert native.launches[G2] == before
 
 
 # --- G3: the joint tridiagonal GPCV ELBO of the multitask model -------------

@@ -21,9 +21,11 @@ import math
 import torch
 from torch import nn
 
+from .. import native
 from ..gp.exact import exact_mll, posterior
 from ..kernels import BMKernel, FBMKernel
 from ..likelihoods import GaussianLikelihood
+from ..ops.bm_vol_mll import bm_vol_mll
 from ..ops.brownian import (future_grid_ok, min_kernel_eigenvalues,
                             min_kernel_project, nan_poison)
 from ..ops.mvn import mvn_log_prob_chol, sample_mvn
@@ -161,12 +163,19 @@ class BMGP(nn.Module):
         """Exact per-asset MLL from :meth:`spectral_cache`:
         ``K + s I = diag(vol dx mu + s) + vol (x0 - dx) w w^T`` in the
         eigenbasis, so Sherman–Morrison and the determinant lemma give the
-        quadratic form and the log-determinant elementwise."""
+        quadratic form and the log-determinant elementwise.  Kernel G2 on
+        the card (one launch for the MLL and its gradient; it raises on
+        float64 and on a gradient wanted for the cache), the plain
+        composition on the CPU."""
         mu, dx, x0 = cache["mu"], cache["dx"], cache["x0"]
         p_y, p_t, w = cache["p_y"], cache["p_t"], cache["w"]
         n = mu.shape[-1]
-        vol = self.kernel.vol()[..., 0]
-        noise = self.likelihood.noise()[..., 0]
+        vol = self.kernel.vol()
+        noise = self.likelihood.noise()
+        if native.on_card(p_y):
+            return bm_vol_mll(p_y, p_t, mu, w, dx, x0, vol, noise)
+        vol = vol[..., 0]
+        noise = noise[..., 0]
 
         d = vol[..., None] * dx[..., None] * mu + noise[..., None]
         p_r = p_y + 0.5 * (vol ** 2.0)[..., None] * p_t

@@ -42,7 +42,8 @@ _HERE = Path(__file__).resolve().parent
 _CSRC = _HERE / "csrc"
 _BUILD = _HERE / "_build"
 _SOURCES = ("ewma_filter.cu", "kalman.cu", "volt_cov.cu", "gh_ell.cu",
-            "gpcv_elbo.cu", "mt_gpcv_elbo.cu", "mt_vol_mll.cu")
+            "gpcv_elbo.cu", "mt_gpcv_elbo.cu", "mt_vol_mll.cu",
+            "bm_vol_mll.cu")
 _HEADERS = ("affine_scan.cuh",)
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -65,6 +66,7 @@ _SIGNATURES = {
     "volt_mt_vol_woodbury_blocks": (*(_P,) * 15, _L, _I, _I, _I, _P),
     "volt_mt_vol_woodbury_mll": (*(_P,) * 12, _I, _P, _I, _I, *(_P,) * 7,
                                  _L, _I, _I, _I, _P),
+    "volt_bm_vol_spectral_mll": (*(_P,) * 6, _I, *(_P,) * 5, _I, _I, _P),
 }
 
 # C functions that launch nothing and return a size that only their source
